@@ -1,0 +1,25 @@
+"""jpeg_tpu_torch — the jpeg_tpu codec in PyTorch, with hand-written CUDA
+kernels for an NVIDIA Hopper GPU.
+
+A port of ``jpeg_tpu`` (JAX + Pallas on a TPU), which stays beside it as
+the reference: same wire format, same configuration objects, and levels,
+streams and planes that agree with the JAX package's f32 path (bitwise,
+except +-1 at provable round ties; ``utils/parity.py``).  This package
+imports ``torch`` and never ``jax`` or ``jpeg_tpu``.
+
+The main path (``compress_ycbcr`` / ``decompress_to_ycbcr``) runs four CUDA
+kernels (``ops/kernels.py``, sources in ``csrc/``), built with ``nvcc`` at
+first use.  Every public function takes ``device``: ``"cuda"`` (default)
+launches the kernels, ``"cpu"`` runs their plain PyTorch versions.
+"""
+
+from .config import (BadArrayShapeError, BadQuantizationError,
+                     BadRleCodeError, BadStreamError, Configuration,
+                     EmptyArrayError, QuantizationMethod)
+from .api import compress_ycbcr, decompress_to_ycbcr, psnr
+
+__all__ = [
+    "BadArrayShapeError", "BadQuantizationError", "BadRleCodeError",
+    "BadStreamError", "Configuration", "EmptyArrayError",
+    "QuantizationMethod", "compress_ycbcr", "decompress_to_ycbcr", "psnr",
+]

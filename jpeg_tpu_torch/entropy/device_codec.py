@@ -1,0 +1,114 @@
+"""Device entropy coding: levels <-> band bitstreams on the GPU.
+
+Counterpart of ``jpeg_tpu/entropy/device_codec.py`` for the main path.
+
+Encode, in two phases as in the JAX package:
+
+1. :func:`block_bytes_of` computes every block's stream length from the
+   levels alone (plain tensor code: runs, sizes, chain counts).  The host
+   pulls a few scalars of it (longest block, total, band lengths, max
+   |level|) to size phase 2 and to reject unrepresentable amplitudes.
+2. :func:`encode_stream_sized`: kernel K1 (:func:`encode_rows`) writes each
+   block's bytes as a row of big-endian words, and kernel K2
+   (:func:`compact_rows`) deposits every row at its byte offset, giving the
+   contiguous stream.  Its overflow check raises on the host
+   (:func:`check_sized_ok`), as the JAX package's poison flag does.
+
+Decode: the host scans block boundaries (``entropy.scan_offsets``, C++) and
+kernel K3 (:func:`decode_stream`) decodes every block from the uploaded
+stream at its start.
+
+Bit and byte positions are int64 throughout.  The JAX package's int32
+bit-position cap and self-chunking (``_CAP_BITS``, ``max_chunk_blocks``,
+``encode_stream_chunks``) exist because the TPU has no int64, and are not
+carried over; nor are the TPU compaction's merge depth, gather groups and
+shape buckets, or the decode overlap table (with ``max_block_bytes_of``,
+which sized it) and length sort.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..ops import kernels as K
+
+MAX_RUN = 15
+MAX_SIZE = 15
+
+
+def _geometry(levels: torch.Tensor):
+    """Per-slot code geometry for (N, L) int32 levels: (nz, absamp, size,
+    nchains, rrem, group_bits), zero slots reporting size 0 and 0 bits."""
+    nz = levels != 0
+    absamp = levels.abs()
+    # size = min(bit_length + 1, 15); frexp's exponent is the bit length
+    # (exact: |a| < 2**24 converts to f32 exactly, larger values clamp).
+    bitlen = torch.frexp(absamp.to(torch.float32))[1].to(torch.int32)
+    size = torch.where(nz, (bitlen + 1).clamp(max=MAX_SIZE), 0)
+    L = levels.shape[-1]
+    idx = torch.arange(L, dtype=torch.int32, device=levels.device)
+    marked = torch.where(nz, idx, -1)
+    pmax = torch.cummax(marked, dim=-1).values
+    prev = torch.cat([torch.full_like(pmax[..., :1], -1), pmax[..., :-1]],
+                     dim=-1)
+    run = idx - prev - 1
+    nchains = torch.div(run, MAX_RUN, rounding_mode="floor")
+    rrem = run - nchains * MAX_RUN
+    group_bits = torch.where(nz, 8 * nchains + 8 + size, 0)
+    return nz, absamp, size, nchains, rrem, group_bits
+
+
+def block_bytes_of(levels: torch.Tensor) -> torch.Tensor:
+    """(N, L) int32 levels -> (N,) int32 stream bytes per block (+ EOB,
+    padded to a byte)."""
+    group_bits = _geometry(levels)[-1]
+    blk_bits = group_bits.sum(dim=-1) + 8
+    return ((blk_bits + 7) >> 3).to(torch.int32)
+
+
+def encode_rows(levels: torch.Tensor, W: int):
+    """(N, L) int32 levels -> ((N, W) int32 stream-word rows, (N,) int32
+    block bytes) through kernel K1.  W must cover the longest block
+    (``ceil(max(block_bytes_of(levels)) / 4)``; :func:`encode_stream_sized`
+    checks it)."""
+    return K.encode_stream_rows(levels, W)
+
+
+def compact_rows(rows: torch.Tensor, blk_bytes: torch.Tensor,
+                 cap: int) -> torch.Tensor:
+    """(N, W) stream-word rows + block bytes -> (cap,) uint8 contiguous
+    stream through kernel K2 (the exclusive prefix sum of ``blk_bytes``
+    places every block)."""
+    return K.deposit_rows(rows, blk_bytes, cap)
+
+
+def encode_stream_sized(levels: torch.Tensor, W: int, cap: int):
+    """(N, L) int32 levels -> (bytes (cap,) uint8, blk_bytes (N,) int32,
+    overflowed 0-d bool tensor), with the row width W and the buffer cap
+    sized from phase 1's stats.
+
+    A block needing more than 4*W bytes, or a stream longer than ``cap``,
+    would be truncated silently (the wire format has no redundancy to catch
+    it), so both are tested against the byte counts K1 computed; on
+    overflow the buffer is zeroed and the flag set, and the host raises
+    through :func:`check_sized_ok`."""
+    rows, blk_bytes = encode_rows(levels, W)
+    buf = compact_rows(rows, blk_bytes, cap)
+    bad = (blk_bytes.max() > 4 * W) | (blk_bytes.to(torch.int64).sum() > cap)
+    return buf.masked_fill(bad, 0), blk_bytes, bad
+
+
+def check_sized_ok(bad) -> None:
+    """Host-side check of :func:`encode_stream_sized`'s overflow flag."""
+    if bool(bad):
+        raise ValueError(
+            "sized encode overflow: a block exceeded the row width or the "
+            "stream exceeded the output cap; both must come from this "
+            "band's own phase-1 stats (block_bytes_of)")
+
+
+def decode_stream(stream_u8: torch.Tensor, starts: torch.Tensor,
+                  L: int) -> torch.Tensor:
+    """(nbytes,) uint8 stream + (N,) int64 block starts -> (N, L) int32
+    levels through kernel K3.  ``starts`` come from the host boundary scan
+    (``entropy.scan_offsets``), which also validates the stream."""
+    return K.decode_stream_blocks(stream_u8, starts.to(torch.int64), L)

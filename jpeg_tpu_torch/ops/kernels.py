@@ -1,0 +1,426 @@
+"""The codec's four GPU kernels: wrappers, plain PyTorch versions, counts.
+
+Counterpart of ``jpeg_tpu/ops/pallas_kernels.py`` for the main path.  Each
+kernel is CUDA C++ under ``jpeg_tpu_torch/csrc/``, compiled by ``nvcc`` for
+``sm_90a`` at first use into ``build/cuda/<source hash>/`` and loaded with
+ctypes (plain C entry points, see ``csrc/common.cuh``).
+
+=====================  ===========================  ======================
+wrapper                source                       replaces (Pallas)
+=====================  ===========================  ======================
+encode_stream_rows     csrc/encode_stream.cu        _encode_stream_lv_kernel
+deposit_rows           csrc/compact.cu              _merge_rows_kernel +
+                                                    compact_rows' gather
+decode_stream_blocks   csrc/decode_stream.cu        _decode_stream_kernel
+decode_blocks          csrc/decode_blocks.cu        _decode_kernel
+=====================  ===========================  ======================
+
+Dispatch is by the device of the tensors a wrapper is given: CPU tensors
+take the plain PyTorch version (``*_plain``, which also runs on CUDA
+tensors when called directly, so a kernel can be held against it on the
+card); CUDA tensors launch the kernel or raise.  Nothing falls back from a
+CUDA tensor to the plain version.  Each wrapper counts its kernel launches
+in its ``launches`` attribute (:func:`launch_counts`).
+"""
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+import torch
+
+from ..utils.device import full_f32_matmul
+
+MAX_RUN = 15
+MAX_SIZE = 15
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "cuda")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lib = None
+_lib_lock = threading.Lock()
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_I32 = ctypes.c_int32
+_SIGNATURES = {
+    # levels, n, L, W, rows, blk_bytes, device, stream
+    "jt_encode_rows": (_P, _I64, _I32, _I32, _P, _P, _I32, _P),
+    # rows, blk_bytes, offsets, n, W, out, cap, device, stream
+    "jt_deposit_rows": (_P, _P, _P, _I64, _I32, _P, _I64, _I32, _P),
+    # stream bytes, nbytes, starts, n, L, out, device, stream
+    "jt_decode_stream": (_P, _I64, _P, _I64, _I32, _P, _I32, _P),
+    # levels, deq, op_t, n, K, M, out, device, stream
+    "jt_decode_blocks": (_P, _P, _P, _I64, _I32, _I32, _P, _I32, _P),
+}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ([os.path.join(home, "bin", "nvcc")] if home else []) + [
+            shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]:
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels "
+                       "are built from jpeg_tpu_torch/csrc at first use")
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+
+
+def library_path() -> str:
+    """Where the built kernel library lives: keyed by the hash of every
+    source and header in ``csrc/`` and of the compiler flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(glob.glob(os.path.join(CSRC, "*.cu*"))):
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_ROOT, h.hexdigest()[:16],
+                        "libjpeg_tpu_torch_kernels.so")
+
+
+def build() -> str:
+    """Compile ``csrc/*.cu`` into one shared library unless it exists.
+
+    Returns its path.  ``nvcc``'s output (``-Xptxas -v``: registers, shared
+    memory and spills per kernel) is kept beside it in ``build.log``.
+    """
+    so = library_path()
+    if os.path.exists(so):
+        return so
+    os.makedirs(os.path.dirname(so), exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, *_sources()]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    log = (f"$ {' '.join(cmd)}\n{res.stdout}{res.stderr}"
+           f"\n[{time.perf_counter() - t0:.1f} s, exit {res.returncode}]\n")
+    with open(os.path.join(os.path.dirname(so), "build.log"), "w") as f:
+        f.write(log)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed building the CUDA kernels:\n{log}")
+    os.replace(tmp, so)
+    return so
+
+
+def _library() -> ctypes.CDLL:
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.jt_error_string.argtypes = (ctypes.c_int,)
+            lib.jt_error_string.restype = ctypes.c_char_p
+            _lib = lib
+    return _lib
+
+
+def _launch(name: str, device: torch.device, *args) -> None:
+    lib = _library()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = getattr(lib, name)(*args, device.index, stream)
+    if err != 0:
+        msg = lib.jt_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA launch failed: {msg} ({err})")
+
+
+def _check(t, name: str, dtype: torch.dtype, ndim: int) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
+    if t.dtype != dtype or t.dim() != ndim:
+        raise ValueError(f"{name} must be a {ndim}-d {dtype} tensor, got "
+                         f"{t.dim()}-d {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _on_cuda(*tensors) -> bool:
+    """True: launch the kernel; False: run the plain version.  Raises for
+    mixed devices or a device with neither."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError("tensors on different devices: "
+                         f"{sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type == "cuda":
+        return True
+    if dev.type == "cpu":
+        return False
+    raise ValueError(f"no kernel for device {dev}: use a CUDA or CPU tensor")
+
+
+def _to_i32_words(w: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2**32) -> int32 with the same bit pattern."""
+    return (w - ((w >> 31) << 32)).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# K1: levels -> stream-word rows + block bytes (csrc/encode_stream.cu)
+# ---------------------------------------------------------------------------
+
+class _RowWriter:
+    """Vectorised counterpart of ``csrc/encode_stream.cu``'s BitWriter: one
+    int64 bit accumulator per block; words leave it at 32 bits, and words
+    past a row's W go to a sink column (counted, not stored)."""
+
+    def __init__(self, n: int, W: int, device):
+        z = torch.zeros(n, dtype=torch.int64, device=device)
+        self.W = W
+        self.rows = torch.zeros((n, W + 1), dtype=torch.int64, device=device)
+        self.ar = torch.arange(n, device=device)
+        self.acc = self.nacc = self.wi = self.total = z
+
+    def _store(self, on, word):
+        col = torch.where(on, self.wi.clamp(max=self.W), self.W)
+        self.rows[self.ar, col] = torch.where(on, word, 0)
+        self.wi = self.wi + on.to(torch.int64)
+
+    def append(self, nbits, val):
+        """Append the low ``nbits`` (<= 23) bits of ``val``, MSB first."""
+        acc = (self.acc << nbits) | val
+        nacc = self.nacc + nbits
+        full = nacc >= 32
+        self.nacc = torch.where(full, nacc - 32, nacc)
+        self._store(full, (acc >> self.nacc) & 0xFFFFFFFF)
+        self.acc = torch.where(full, acc & ((1 << self.nacc) - 1), acc)
+        self.total = self.total + nbits
+
+    def finish(self):
+        tail = self.nacc > 0
+        self._store(tail, (self.acc << (32 - self.nacc).clamp(max=31))
+                     & 0xFFFFFFFF)
+        return (_to_i32_words(self.rows[:, :self.W]),
+                (self.total >> 3).to(torch.int32))
+
+
+def encode_stream_rows_plain(levels: torch.Tensor, W: int):
+    """Plain version of K1: a loop over the L slots, vectorised over blocks,
+    in int64.  Returns ((N, W) int32 big-endian word rows, (N,) int32 block
+    bytes); bytes of a block longer than 4*W are counted but not stored."""
+    n, L = levels.shape
+    lv = levels.to(torch.int64)
+    bw = _RowWriter(n, W, levels.device)
+    zero = torch.zeros_like(bw.total)
+    prev = torch.full_like(zero, -1)
+    for s in range(L):
+        a = lv[:, s]
+        nz = a != 0
+        absa = a.abs()
+        bitlen = torch.frexp(absa.to(torch.float64))[1].to(torch.int64)
+        size = torch.where(nz, (bitlen + 1).clamp(max=MAX_SIZE), 1)
+        run = s - prev - 1
+        nch = torch.div(run, MAX_RUN, rounding_mode="floor")
+        rrem = run - nch * MAX_RUN
+        for c in range((L - 1) // MAX_RUN):
+            on = nz & (c < nch)
+            bw.append(torch.where(on, 8, 0), torch.where(on, 0xF0, 0))
+        mag = absa & ((1 << (size - 1)) - 1)
+        code = ((rrem << (4 + size)) | (size << size)
+                | ((a > 0).to(torch.int64) << (size - 1)) | mag)
+        bw.append(torch.where(nz, 8 + size, 0), torch.where(nz, code, 0))
+        prev = torch.where(nz, s, prev)
+    bw.append(zero + 8, zero)                                # EOB
+    bw.append((-bw.total) & 7, zero)                         # pad to a byte
+    return bw.finish()
+
+
+def encode_stream_rows(levels: torch.Tensor, W: int):
+    """(N, L) int32 levels -> ((N, W) int32 stream-word rows, (N,) int32
+    block bytes).  Row i is block i's bytes, top-justified big-endian words,
+    zero-padded; a block longer than 4*W bytes is truncated in its row (its
+    count stays exact), so callers check ``blk_bytes <= 4*W``.  Levels must
+    satisfy |a| <= 16383 (callers check the max first)."""
+    _check(levels, "levels", torch.int32, 2)
+    if W < 1:
+        raise ValueError(f"row width W must be >= 1 word, got {W}")
+    if not _on_cuda(levels):
+        return encode_stream_rows_plain(levels, W)
+    n, L = levels.shape
+    rows = torch.empty((n, W), dtype=torch.int32, device=levels.device)
+    blk_bytes = torch.empty(n, dtype=torch.int32, device=levels.device)
+    if n:
+        _launch("jt_encode_rows", levels.device, levels.data_ptr(), n, L, W,
+                rows.data_ptr(), blk_bytes.data_ptr())
+        encode_stream_rows.launches += 1
+    return rows, blk_bytes
+
+
+# ---------------------------------------------------------------------------
+# K2: rows + block bytes -> contiguous stream (csrc/compact.cu)
+# ---------------------------------------------------------------------------
+
+def _exclusive_offsets(blk_bytes: torch.Tensor) -> torch.Tensor:
+    bb = blk_bytes.to(torch.int64)
+    return torch.cumsum(bb, 0) - bb
+
+
+def deposit_rows_plain(rows: torch.Tensor, blk_bytes: torch.Tensor,
+                       cap: int) -> torch.Tensor:
+    """Plain version of K2: every byte's stream position by index
+    arithmetic, then one scatter.  Returns (cap,) uint8."""
+    n, W = rows.shape
+    dev = rows.device
+    shifts = torch.tensor([24, 16, 8, 0], dtype=torch.int32, device=dev)
+    b = ((rows.unsqueeze(-1) >> shifts) & 0xFF).reshape(n, 4 * W)
+    j = torch.arange(4 * W, device=dev)
+    pos = _exclusive_offsets(blk_bytes)[:, None] + j[None, :]
+    keep = (j[None, :] < blk_bytes[:, None].to(torch.int64)) & (pos < cap)
+    out = torch.zeros(cap + 1, dtype=torch.uint8, device=dev)  # [cap]: sink
+    out[torch.where(keep, pos, cap)] = torch.where(keep, b, 0).to(torch.uint8)
+    return out[:cap]
+
+
+def deposit_rows(rows: torch.Tensor, blk_bytes: torch.Tensor,
+                 cap: int) -> torch.Tensor:
+    """(N, W) int32 rows + (N,) int32 block bytes -> (cap,) uint8 buffer
+    whose first ``blk_bytes.sum()`` bytes are the concatenated block
+    streams (the rest zero).  Nothing past ``cap`` is written: callers that
+    size ``cap`` check the sum against it."""
+    _check(rows, "rows", torch.int32, 2)
+    _check(blk_bytes, "blk_bytes", torch.int32, 1)
+    if blk_bytes.shape[0] != rows.shape[0]:
+        raise ValueError(f"{rows.shape[0]} rows but {blk_bytes.shape[0]} "
+                         "block byte counts")
+    if cap < 0:
+        raise ValueError(f"cap must be >= 0, got {cap}")
+    if not _on_cuda(rows, blk_bytes):
+        return deposit_rows_plain(rows, blk_bytes, cap)
+    n, W = rows.shape
+    out = torch.zeros(cap, dtype=torch.uint8, device=rows.device)
+    if n and cap:
+        offsets = _exclusive_offsets(blk_bytes)
+        _launch("jt_deposit_rows", rows.device, rows.data_ptr(),
+                blk_bytes.data_ptr(), offsets.data_ptr(), n, W,
+                out.data_ptr(), cap)
+        deposit_rows.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K3: stream bytes + block starts -> (N, L) levels (csrc/decode_stream.cu)
+# ---------------------------------------------------------------------------
+
+def decode_stream_blocks_plain(stream: torch.Tensor, starts: torch.Tensor,
+                               L: int) -> torch.Tensor:
+    """Plain version of K3: a loop over the L + L//15 + 2 code steps,
+    vectorised over blocks."""
+    n = starts.shape[0]
+    dev = stream.device
+    nbytes = stream.shape[0]
+    pad = torch.cat([stream.to(torch.int64),
+                     torch.zeros(5, dtype=torch.int64, device=dev)])
+    pos = starts.to(torch.int64) * 8
+    widx = torch.zeros(n, dtype=torch.int64, device=dev)
+    done = torch.zeros(n, dtype=torch.bool, device=dev)
+    out = torch.zeros((n, L + 1), dtype=torch.int32, device=dev)  # col L: sink
+    ar = torch.arange(n, device=dev)
+    for _ in range(L + L // MAX_RUN + 2):
+        byte = (pos >> 3).clamp(0, nbytes)
+        v = torch.zeros_like(pos)
+        for j in range(5):
+            v = (v << 8) | pad[byte + j]
+        win = (v >> (8 - (pos & 7))) & 0xFFFFFFFF
+        run = win >> 28
+        size = (win >> 24) & 0xF
+        eob = (run == 0) & (size == 0)
+        chain = (run == MAX_RUN) & (size == 0)
+        active = ~done
+        nmag = (size - 1).clamp(min=0)
+        mag = (win >> (23 - nmag)) & ((1 << nmag) - 1)
+        amp = torch.where(((win >> 23) & 1) == 1, mag, -mag)
+        wt = widx + run
+        store = active & ~eob & ~chain & (wt < L)
+        out[ar, torch.where(store, wt, L)] = torch.where(
+            store, amp, 0).to(torch.int32)
+        widx = torch.where(active & chain, widx + MAX_RUN,
+                           torch.where(store, wt + 1, widx))
+        adv = torch.where(chain, 8, 8 + size)
+        pos = torch.where(active & ~eob, pos + adv, pos)
+        done = done | (active & eob)
+    return out[:, :L].contiguous()
+
+
+def decode_stream_blocks(stream: torch.Tensor, starts: torch.Tensor,
+                         L: int) -> torch.Tensor:
+    """(nbytes,) uint8 stream + (N,) int64 block start offsets -> (N, L)
+    int32 levels.  The stream must have been validated by the host
+    boundary scan that produced ``starts``."""
+    _check(stream, "stream", torch.uint8, 1)
+    _check(starts, "starts", torch.int64, 1)
+    if L < 1:
+        raise ValueError(f"L must be >= 1, got {L}")
+    if not _on_cuda(stream, starts):
+        return decode_stream_blocks_plain(stream, starts, L)
+    n = starts.shape[0]
+    out = torch.zeros((n, L), dtype=torch.int32, device=stream.device)
+    if n:
+        _launch("jt_decode_stream", stream.device, stream.data_ptr(),
+                stream.shape[0], starts.data_ptr(), n, L, out.data_ptr())
+        decode_stream_blocks.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K4: dequantize + decode operator + round/clamp (csrc/decode_blocks.cu)
+# ---------------------------------------------------------------------------
+
+def decode_blocks_plain(levels: torch.Tensor, op_t: torch.Tensor,
+                        deq: torch.Tensor) -> torch.Tensor:
+    """Plain version of K4: an f32 ``matmul`` in full f32 (see
+    ``utils/device.py:full_f32_matmul``), round half to even, clamp."""
+    with full_f32_matmul():
+        pix = torch.matmul((levels * deq).to(torch.float32), op_t)
+    return torch.round(pix).clamp(0, 255).to(torch.uint8)
+
+
+def decode_blocks(levels: torch.Tensor, op_t: torch.Tensor,
+                  deq: torch.Tensor) -> torch.Tensor:
+    """(N, K) int32 levels, (K, M) f32 operator, (K,) int32 dequantizer ->
+    (N, M) uint8 ``clamp(round((levels*deq) @ op_t), 0, 255)``."""
+    _check(levels, "levels", torch.int32, 2)
+    _check(op_t, "op_t", torch.float32, 2)
+    _check(deq, "deq", torch.int32, 1)
+    n, K = levels.shape
+    if op_t.shape[0] != K or deq.shape[0] != K:
+        raise ValueError(f"levels (N, {K}) needs op_t ({K}, M) and deq "
+                         f"({K},), got {tuple(op_t.shape)}, "
+                         f"{tuple(deq.shape)}")
+    if not _on_cuda(levels, op_t, deq):
+        return decode_blocks_plain(levels, op_t, deq)
+    M = op_t.shape[1]
+    out = torch.empty((n, M), dtype=torch.uint8, device=levels.device)
+    if n and M:
+        _launch("jt_decode_blocks", levels.device, levels.data_ptr(),
+                deq.data_ptr(), op_t.data_ptr(), n, K, M, out.data_ptr())
+        decode_blocks.launches += 1
+    return out
+
+
+KERNELS = (encode_stream_rows, deposit_rows, decode_stream_blocks,
+           decode_blocks)
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS:
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in KERNELS}
+
+
+reset_launch_counts()

@@ -1,0 +1,61 @@
+"""Device selection and the f32 precision the codec needs."""
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+
+def resolve_device(device) -> torch.device:
+    """The ``device`` argument of the public API as a ``torch.device``.
+
+    ``"cuda"`` (the default everywhere) runs the hand-written kernels and
+    raises when no GPU is present: there is no silent move to the CPU.
+    ``"cpu"`` runs every kernel's plain PyTorch version.
+    """
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {str(device)!r} requested but "
+                "torch.cuda.is_available() is False; pass device='cpu' for "
+                "the plain PyTorch path")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}: use 'cuda' or 'cpu'")
+    return dev
+
+
+# The settings that govern float32 matrix products: cuBLAS on the GPU and
+# oneDNN on the CPU (where "medium" precision means bf16).  The codec runs no
+# convolution, so cuDNN's settings do not bear on it and are left alone.
+_F32_MATMUL_BACKENDS = (torch.backends.cuda.matmul, torch.backends.mkldnn.matmul)
+
+
+@contextlib.contextmanager
+def full_f32_matmul():
+    """Run the enclosed float32 matrix products in full f32.
+
+    TF32 keeps about three decimal digits, and coefficients reach 255*d*d:
+    reduced-precision products move quantized levels by several units, far
+    outside the +-1-at-ties contract (``utils/parity.py``).  The codec wraps
+    each of its f32 products in this and checks that the setting took.
+
+    It sets each backend's ``fp32_precision`` to ``"ieee"`` and restores the
+    caller's values on exit, so the surrounding program's own products keep
+    the precision it chose.  It touches only these per-backend settings
+    (torch 2.9 and later): the legacy switches (``allow_tf32``,
+    ``set_float32_matmul_precision``) also write a global that the per-backend
+    ones do not restore.
+    """
+    saved = [b.fp32_precision for b in _F32_MATMUL_BACKENDS]
+    try:
+        for b in _F32_MATMUL_BACKENDS:
+            b.fp32_precision = "ieee"
+        if any(b.fp32_precision != "ieee" for b in _F32_MATMUL_BACKENDS):
+            raise RuntimeError("could not disable TF32 for float32 products")
+        yield
+    finally:
+        for b, value in zip(_F32_MATMUL_BACKENDS, saved):
+            b.fp32_precision = value
