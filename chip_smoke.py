@@ -11,24 +11,43 @@ result):
 
 1. Require a CUDA device; print ``nvidia-smi``'s card name and power limit
    and the torch / CUDA versions.
-2. Build the four CUDA kernels from ``jpeg_tpu_torch/csrc`` with ``nvcc``
+2. Build the seven CUDA kernels from ``jpeg_tpu_torch/csrc`` with ``nvcc``
    (into ``build/cuda/``) and print the build time and ptxas' resource use.
 3. Hold each kernel against its plain PyTorch version on the card at the
    main path's shapes (2048x2048 image: N = 49,152 blocks, L = 64), on the
    image's own levels and on adversarial random levels: K1-K3 must be
    bit-equal, K4 equal except +-1 at provable ties (``utils/parity.py``).
-4. Drive ``compress_ycbcr`` -> ``decompress_to_ycbcr`` at 2048x2048 and
-   3840x2160 (qtable, DCT, dct_size 8, block_size 2) with every kernel's
-   launch count reset just before and read just after.  Check that each
-   band stream is byte-equal to the host C++ encoder's stream of the same
-   levels, the container re-parses, the levels agree with the f64
-   reference, PSNR is above 30 dB, the planes equal the plain-version path's
-   on the card except +-1 at ties, and every kernel was launched.  With
-   the caller's TF32 switched on, the container is the same bytes and the
-   caller's setting is left as it was.
+   The boundary-scan kernels K6-K8 run on the image's three-band stream,
+   the adversarial levels' stream, 24 single-byte mutations of the image
+   stream and pure garbage bytes: the end table, the starts and the checks
+   must be bit-equal to the plain versions', the starts must be the host
+   C++ scanner's wherever it accepts every band, and a truncated middle
+   band must fail the check.
+4. Drive the main path, ``compress_ycbcr`` -> ``decompress_to_ycbcr``
+   (host C++ boundary scan), at 2048x2048 and 3840x2160 (qtable, DCT,
+   dct_size 8, block_size 2) with every kernel's launch count reset just
+   before and read just after.  Check that each band stream is byte-equal
+   to the host C++ encoder's stream of the same levels, the container
+   re-parses, the levels agree with the f64 reference, PSNR is above 30 dB,
+   the planes equal the plain-version path's on the card except +-1 at
+   ties, and every kernel of the path was launched.  With the caller's
+   TF32 switched on, the container is the same bytes and the caller's
+   setting is left as it was.  Then drive the host-free path and the rest
+   of the API the same way, counts reset just before and read just after:
+   ``decompress_to_ycbcr(scan="device")`` and ``decompress_to_device`` must
+   give planes bit-equal to the host-scan path's, ``decompress_many`` (both
+   scans, mixed sizes) and ``compress_many`` must equal their per-image
+   results, a truncated container must raise the host path's error class,
+   ``entropy.scan_offsets(scan="device")`` must give each band's host
+   starts, the device scan must accept both images' streams, each decode
+   must have launched K3 once, and K6, K7 and K8 must have been launched.
 5. Time encode and decode (host array -> host bytes -> host array) with
-   CUDA events, median of 7 after a warm-up, and each kernel against its
-   plain version.
+   CUDA events, median of 7 after a warm-up, decode with either scan; the
+   host-free decode stage by stage; each kernel against its plain version; the pure-Python scanner, the C++
+   scanner and the device scan at stream sizes from 256 bytes to 256 KB
+   (where the device scan overtakes the pure-Python one); and
+   ``compress_many`` / ``decompress_many`` at depth 2 over 8 images of
+   2048x2048.
 
 The last three lines of standard output are a JSON object of per-kernel
 results, the card's ``name, power.limit`` and
@@ -58,7 +77,19 @@ KERNEL_INFO = {   # wrapper name -> (source, Pallas kernel it replaces)
                              "jpeg_tpu/ops/pallas_kernels.py:127"),
     "decode_blocks": ("jpeg_tpu_torch/csrc/decode_blocks.cu",
                       "jpeg_tpu/ops/pallas_kernels.py:73"),
+    "scan_walk": ("jpeg_tpu_torch/csrc/scan_walk.cu",
+                  "jpeg_tpu/ops/pallas_kernels.py:857"),
+    "chase_starts": ("jpeg_tpu_torch/csrc/chase.cu",
+                     "jpeg_tpu/ops/pallas_kernels.py:944"),
+    "chase_starts_multi": ("jpeg_tpu_torch/csrc/chase.cu",
+                           "jpeg_tpu/ops/pallas_kernels.py:982"),
 }
+MAIN_PATH = ("encode_stream_rows", "deposit_rows", "decode_stream_blocks",
+             "decode_blocks")
+HOST_FREE_PATH = ("scan_walk", "chase_starts", "chase_starts_multi")
+MUTANTS = 24
+CROSSOVER_BYTES = (256, 1 << 10, 4 << 10, 16 << 10, 64 << 10, 256 << 10)
+MANY = 8
 
 
 def log(*a) -> None:
@@ -128,6 +159,17 @@ def median_call_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
+def median_host_ms(fn, reps: int) -> float:
+    """Median host-clock time of calls whose results are on the host."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
 def max_diff(a, b) -> int:
     """Largest elementwise |a - b| of two integer tensors, as an int."""
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
@@ -158,11 +200,14 @@ def main() -> int:
         print(f"chip_smoke: {e}: run it from the root of a checkout of the "
               "repository", file=sys.stderr)
         return 1
-    from jpeg_tpu_torch import (Configuration, QuantizationMethod,
-                                compress_ycbcr, container,
-                                decompress_to_ycbcr, psnr)
+    from jpeg_tpu_torch import (BadRleCodeError, BadStreamError,
+                                Configuration, QuantizationMethod,
+                                compress_many, compress_ycbcr, container,
+                                decompress_many, decompress_to_device,
+                                decompress_to_ycbcr, entropy, psnr)
     from jpeg_tpu_torch.entropy import device_codec as DC
-    from jpeg_tpu_torch.entropy import native_codec
+    from jpeg_tpu_torch.entropy import device_scan as DS
+    from jpeg_tpu_torch.entropy import native_codec, numpy_codec
     from jpeg_tpu_torch.ops import kernels as K
     from jpeg_tpu_torch.ops.band import BandDecoder, BandEncoder
     from jpeg_tpu_torch.ops.blocks import crop, deblockify
@@ -220,7 +265,7 @@ def main() -> int:
         dec_p = K.decode_stream_blocks_plain(buf_k, starts, L)
         check(torch.equal(dec_k, dec_p) and torch.equal(dec_k, lv),
               f"K3 {label}: levels bit-equal to plain and to the input")
-        return {
+        return buf_k, bb_k, {
             "encode_stream_rows": dict(
                 err=max(max_diff(rows_k, rows_p), max_diff(bb_k, bb_p)),
                 fn=lambda: K.encode_stream_rows(lv, W),
@@ -235,9 +280,118 @@ def main() -> int:
                 plain=lambda: K.decode_stream_blocks_plain(buf_k, starts, L)),
         }
 
-    results = entropy_kernels("image", flat)
-    entropy_kernels("adversarial",
-                    torch.from_numpy(adversarial_levels(n_blocks, L)).to(dev))
+    img_buf, img_bb, results = entropy_kernels("image", flat)
+    adv_buf, adv_bb, _ = entropy_kernels(
+        "adversarial",
+        torch.from_numpy(adversarial_levels(n_blocks, L)).to(dev))
+
+    # Bound again in scan_kernels' own scope for its timing closures:
+    # main() reassigns nb in phase 4.
+    band_blocks = n_blocks // 3
+    scan_err = dict.fromkeys(HOST_FREE_PATH, 0)
+
+    def band_ends(bb) -> list:
+        return np.cumsum(bb.to(torch.int64).reshape(3, -1).sum(1).cpu()
+                         .numpy()).tolist()
+
+    def host_starts(raw: bytes, ends: list):
+        """The host C++ scanner's starts of each band, or None where it
+        rejects one."""
+        nb = band_blocks
+        out, s0 = [], 0
+        for e in ends:
+            try:
+                out.append(native_codec.scan_offsets(raw[s0:e], nb, L) + s0)
+            except (BadStreamError, BadRleCodeError):
+                return None
+            s0 = e
+        return np.concatenate(out)
+
+    def scan_kernels(label, buf, ends, quiet=False):
+        """K6-K8 vs their plain versions (bit-equal) on one buffer of three
+        bands, and their starts vs the host C++ scanner's.  Returns the
+        device check and the timing closures on these inputs."""
+        n, nb = buf.shape[0], band_blocks
+        s0s_l = [0] + ends[:-1]
+        targets = torch.tensor(ends, dtype=torch.int64, device=dev)
+        s0s = torch.tensor(s0s_l, dtype=torch.int64, device=dev)
+        E_k = K.scan_walk(buf, n, L)
+        E_p = K.scan_walk_plain(buf, n, L)
+        st_k, ok_k = K.chase_starts_multi(E_k, targets, s0s, nb)
+        st_p, ok_p = K.chase_starts_multi_plain(E_k, targets, s0s, nb)
+        one_k = [K.chase_starts(E_k, t, s0, nb) for t, s0 in zip(ends, s0s_l)]
+        one_p = [K.chase_starts_plain(E_k, t, s0, nb)
+                 for t, s0 in zip(ends, s0s_l)]
+        errs = {
+            "scan_walk": max_diff(E_k, E_p),
+            "chase_starts_multi": max(max_diff(st_k, st_p),
+                                      max_diff(ok_k, ok_p)),
+            "chase_starts": max(max(max_diff(a, c), max_diff(b, d))
+                                for (a, b), (c, d) in zip(one_k, one_p)),
+        }
+        for k, v in errs.items():
+            scan_err[k] = max(scan_err[k], v)
+        want = host_starts(buf.cpu().numpy().tobytes(), ends)
+        ok = bool(ok_k.all())
+        what = (f"K6-K8 {label}: end table, starts and checks bit-equal to "
+                f"plain; check {ok} = host C++ scanner's "
+                f"{want is not None}; starts = host starts")
+        good = (not any(errs.values()) and ok == (want is not None)
+                and [bool(o) for _, o in one_k] == ok_k.tolist()
+                and (want is None or np.array_equal(st_k.reshape(-1).cpu()
+                                                    .numpy(), want)))
+        if quiet:
+            if not good:
+                raise AssertionError(what)
+        else:
+            check(good, what)
+        return ok, {
+            "scan_walk": dict(
+                err=errs["scan_walk"], fn=lambda: K.scan_walk(buf, n, L),
+                plain=lambda: K.scan_walk_plain(buf, n, L)),
+            "chase_starts": dict(
+                err=errs["chase_starts"],
+                fn=lambda: K.chase_starts(E_k, ends[0], 0, nb),
+                plain=lambda: K.chase_starts_plain(E_k, ends[0], 0, nb)),
+            "chase_starts_multi": dict(
+                err=errs["chase_starts_multi"],
+                fn=lambda: K.chase_starts_multi(E_k, targets, s0s, nb),
+                plain=lambda: K.chase_starts_multi_plain(E_k, targets, s0s,
+                                                         nb)),
+        }
+
+    img_ends = band_ends(img_bb)
+    ok, scan_results = scan_kernels("image stream", img_buf, img_ends)
+    check(ok, f"K6+K8 accept the image's {img_ends[-1]}-byte stream")
+    ok, _ = scan_kernels("adversarial stream", adv_buf, band_ends(adv_bb))
+    check(ok, "K6+K8 accept the adversarial stream")
+    rng = np.random.default_rng(3)
+    accepted = 0
+    for i in range(MUTANTS):
+        mut = img_buf.clone()
+        q = int(rng.integers(img_ends[-1]))
+        mut[q] = (int(mut[q]) + int(rng.integers(1, 256))) % 256
+        ok, _ = scan_kernels(f"mutant {i} (byte {q})", mut, img_ends,
+                             quiet=True)
+        accepted += ok
+    check(True, f"K6-K8 on {MUTANTS} single-byte mutants: bit-equal to plain, "
+          f"check = host C++ scanner's ({accepted} accepted by both)")
+    garbage = torch.from_numpy(rng.integers(0, 256, 3 << 16, dtype=np.uint8))
+    for label, g in (("uniform garbage", garbage),
+                     ("0xff garbage", torch.full((12288,), 0xFF,
+                                                 dtype=torch.uint8))):
+        n = g.shape[0]
+        ok, _ = scan_kernels(label, g.to(dev), [n // 3, 2 * n // 3, n])
+        check(not ok, f"{label}: rejected")
+    raw = img_buf.cpu().numpy().tobytes()
+    b0, b1 = img_ends[0], img_ends[1]
+    trunc = raw[:b1 - 1] + raw[b1:]
+    t_ends = [b0, b1 - 1, img_ends[2] - 1]
+    t_buf = torch.frombuffer(bytearray(trunc), dtype=torch.uint8).to(dev)
+    ok, _ = scan_kernels("truncated middle band", t_buf, t_ends)
+    _, ok_api = DS.scan_bands_starts(t_buf, t_ends, band_blocks, L)
+    check(not ok and not bool(ok_api), "truncated middle band: check fails")
+    results.update(scan_results)
 
     dec = BandDecoder(cfg).to(dev)
     pix_k = K.decode_blocks(flat, dec.op_t, dec.deq)
@@ -272,7 +426,7 @@ def main() -> int:
         runs[hw] = (blob, decompress_to_ycbcr(blob))
     counts = K.launch_counts()
     log(f"  launch counts over the main-path run: {counts}")
-    check(all(counts[name] > 0 for name in KERNEL_INFO),
+    check(all(counts[name] > 0 for name in MAIN_PATH),
           "every kernel of the path was launched")
     for (h, w), (blob, rec) in runs.items():
         cfg = cfg_for(h, w)
@@ -335,28 +489,203 @@ def main() -> int:
               f"after {label}: the {h}x{w} container is the same bytes "
               "(full f32 products) and the caller's setting is left on")
 
+    log("== phase 4b: host-free decode (scan='device') and the rest of "
+        "the API")
+    sizes = list(runs)
+    K.reset_launch_counts()
+    dev_recs = {hw: decompress_to_ycbcr(blob, scan="device")
+                for hw, (blob, _) in runs.items()}
+    dev_planes = {hw: decompress_to_device(blob, scan="device")
+                  for hw, (blob, _) in runs.items()}
+    band_starts = {}
+    for hw, (blob, _) in runs.items():
+        cfg, data = container.read_data(blob)
+        band_starts[hw] = [
+            entropy.scan_offsets(s, cfg.num_blocks, L, scan="device")
+            for s in (data.y, data.cb, data.cr)]
+    mixed = [runs[sizes[0]][0], runs[sizes[1]][0], runs[sizes[0]][0]]
+    many = {scan: decompress_many(mixed, scan=scan)
+            for scan in ("host", "device")}
+    many_blobs = {hw: compress_many([images[hw], np.roll(images[hw], 64, 1),
+                                     images[hw]], cfg_for(*hw))
+                  for hw in sizes}
+    errors = {}
+    for scan in ("host", "device"):
+        try:
+            decompress_to_ycbcr(runs[sizes[0]][0][:-3], scan=scan)
+        except (BadStreamError, BadRleCodeError) as e:
+            errors[scan] = type(e)
+    counts_hf = K.launch_counts()
+    log(f"  launch counts over the host-free run: {counts_hf}")
+    # One K3 launch per decode: two per size, one per decompress_many image
+    # and scan, and the truncated container's device-scan decode, which
+    # launches before its check is read.  A decode moved to the host scan
+    # would launch K3 a second time.
+    decodes = 2 * len(sizes) + 2 * len(mixed) + 1
+    check(counts_hf["decode_stream_blocks"] == decodes,
+          f"the host-free run decoded {decodes} times, each once "
+          f"(K3 launches: {counts_hf['decode_stream_blocks']})")
+    for (h, w), (blob, rec) in runs.items():
+        cfg, data = container.read_data(blob)
+        streams = (data.y, data.cb, data.cr)
+        buf = torch.frombuffer(bytearray(b"".join(streams)),
+                               dtype=torch.uint8).to(dev)
+        ends = np.cumsum([len(s) for s in streams])
+        _, ok_hf = DS.scan_bands_starts(buf, ends, cfg.num_blocks, L)
+        check(bool(ok_hf), f"{h}x{w}: the device scan accepts the stream")
+    for (h, w), (blob, rec) in runs.items():
+        check(np.array_equal(dev_recs[(h, w)], rec),
+              f"{h}x{w}: scan='device' planes bit-equal to the host-scan "
+              "path's")
+        planes = dev_planes[(h, w)]
+        check(planes.is_cuda and planes.shape == (3, h, w) and np.array_equal(
+            planes.cpu().numpy().transpose(1, 2, 0), rec),
+              f"{h}x{w}: decompress_to_device gives a CUDA tensor equal to "
+              "them")
+        cfg, data = container.read_data(blob)
+        check(all(np.array_equal(got, native_codec.scan_offsets(
+            s, cfg.num_blocks, L)) for got, s in zip(
+                band_starts[(h, w)], (data.y, data.cb, data.cr))),
+              f"{h}x{w}: entropy.scan_offsets(scan='device') gives each "
+              "band's host C++ starts")
+        im = images[(h, w)]
+        want = [runs[(h, w)][0],
+                compress_ycbcr(np.roll(im, 64, 1), cfg_for(h, w)),
+                runs[(h, w)][0]]
+        check(many_blobs[(h, w)] == want,
+              f"{h}x{w}: compress_many containers byte-equal to "
+              "compress_ycbcr's")
+    for scan, recs in many.items():
+        check(all(np.array_equal(r, runs[sizes[i % 2]][1])
+                  for i, r in enumerate(recs)),
+              f"decompress_many(scan={scan!r}) over mixed sizes equals the "
+              "per-image results")
+    check("host" in errors and errors.get("device") is errors["host"],
+          f"a truncated container raises {errors['host'].__name__} with "
+          "either scan")
+    check(all(counts_hf[name] > 0 for name in HOST_FREE_PATH),
+          "K6, K7 and K8 were launched by the host-free run")
+
     log(f"== phase 5: timing (CUDA events; {card})")
     for (h, w), (blob, _) in runs.items():
         cfg = cfg_for(h, w)
         im = images[(h, w)]
         enc = median_call_ms(lambda: compress_ycbcr(im, cfg), REPS)
-        dec_ms = median_call_ms(lambda: decompress_to_ycbcr(blob), REPS)
         mp = h * w / 1e6
         log(f"  encode {h}x{w}: {enc:.3f} ms median of {REPS} "
             f"= {mp / enc * 1e3:.1f} MP/s  [{card}]")
-        log(f"  decode {h}x{w}: {dec_ms:.3f} ms median of {REPS} "
-            f"= {mp / dec_ms * 1e3:.1f} MP/s  [{card}]")
+        for scan in ("host", "device", "host", "device"):
+            dec_ms = median_call_ms(
+                lambda: decompress_to_ycbcr(blob, scan=scan), REPS)
+            log(f"  decode {h}x{w} scan={scan}: {dec_ms:.3f} ms median of "
+                f"{REPS} = {mp / dec_ms * 1e3:.1f} MP/s  [{card}]")
+    log("  -- host-free decode by stage (each stage ended by a device "
+        f"sync, host clock, median of {REPS})")
+    for (h, w), (blob, _) in runs.items():
+        stages = {}
+
+        def stage(name, fn):
+            def run():
+                out = fn()
+                torch.cuda.synchronize()
+                return out
+            out = run()
+            times = []
+            for _ in range(REPS):
+                t0 = time.perf_counter()
+                run()
+                times.append((time.perf_counter() - t0) * 1e3)
+            stages[name] = float(np.median(times))
+            return out
+
+        cfg, data = stage("parse container",
+                          lambda: container.read_data(blob))
+        streams = [data.y, data.cb, data.cr]
+        nbh = cfg.num_blocks
+        ends = np.cumsum([len(x) for x in streams]).tolist()
+        stream = stage("upload stream", lambda: DC.upload_stream(
+            b"".join(streams), dev))
+        E = stage("K6 end table", lambda: DS.end_table(stream, ends[-1], L))
+        tg = torch.tensor(ends, dtype=torch.int64, device=dev)
+        s0 = torch.tensor([0] + ends[:-1], dtype=torch.int64, device=dev)
+        starts, oks = stage("K8 chase", lambda: K.chase_starts_multi(
+            E, tg, s0, nbh))
+        stage("check pull", lambda: bool(oks.all()))
+        levels = stage("K3 levels", lambda: DC.decode_stream(
+            stream, starts.reshape(-1), L))
+        planes = stage("K4 + layout (module build included)",
+                       lambda: BandDecoder(cfg).to(dev)(
+                           levels.reshape(3, nbh, L)))
+        stage("download planes",
+              lambda: planes.cpu().numpy().transpose(1, 2, 0))
+        total = median_call_ms(
+            lambda: decompress_to_ycbcr(blob, scan="device"), REPS)
+        log(f"  {h}x{w}: " + ", ".join(f"{k} {v:.3f}"
+                                       for k, v in stages.items())
+            + f"; sum {sum(stages.values()):.3f} ms, unfenced call "
+            f"{total:.3f} ms  [{card}]")
+
     kernels = []
     for name, r in results.items():
         ms = time_ms(r["fn"], 50)
         plain_ms = time_ms(r["plain"], 5)
         log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-            f"(N={n_blocks}, L={L})  [{card}]")
+            f"(N={n_blocks}, L={L}, stream {img_ends[-1]} bytes)  [{card}]")
         src, repl = KERNEL_INFO[name]
+        launches = counts_hf[name] if name in HOST_FREE_PATH else counts[name]
+        err = scan_err[name] if name in HOST_FREE_PATH else r["err"]
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": repl, "launches": counts[name],
-                        "max_abs_err": r["err"], "ms": ms,
-                        "plain_ms": plain_ms})
+                        "replaces": repl, "launches": launches,
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+
+    log("  -- boundary scan of one band by stream size: pure-Python scanner, "
+        "C++ scanner, device scan (K6 + K7, upload and pull included)")
+    big_blob = runs[sizes[-1]][0]
+    big_cfg, big_data = container.read_data(big_blob)
+    band = big_data.y
+    starts0 = native_codec.scan_offsets(band, big_cfg.num_blocks, L)
+    block_ends = np.append(starts0[1:], len(band))
+    crossover = None
+    for size in CROSSOVER_BYTES:
+        k = min(int(np.searchsorted(block_ends, size)) + 1, len(block_ends))
+        part = band[:int(block_ends[k - 1])]
+        py_ms = median_host_ms(lambda: numpy_codec.scan_offsets(part, k, L),
+                               3)
+        cpp_ms = median_host_ms(lambda: native_codec.scan_offsets(part, k, L),
+                                REPS)
+        dev_ms = median_host_ms(
+            lambda: DS.scan_offsets_device(part, k, L), REPS)
+        if crossover is None and dev_ms < py_ms:
+            crossover = len(part)
+        log(f"  scan {len(part)} bytes ({k} blocks): python {py_ms:.3f} ms, "
+            f"C++ {cpp_ms:.3f} ms, device {dev_ms:.3f} ms  [{card}]")
+    log(f"  the device scan overtakes the pure-Python scanner by "
+        f"{crossover} bytes (PY_SCAN_DEVICE_MIN_BYTES = "
+        f"{DS.PY_SCAN_DEVICE_MIN_BYTES})  [{card}]")
+
+    log(f"  -- {MANY} images of {sizes[0][0]}x{sizes[0][1]}, depth 2")
+    h, w = sizes[0]
+    cfg = cfg_for(h, w)
+    batch = [np.roll(images[(h, w)], 64 * i, 1) for i in range(MANY)]
+    blobs = compress_many(batch, cfg)
+    check(blobs == [compress_ycbcr(im, cfg) for im in batch],
+          f"compress_many over {MANY} images equals compress_ycbcr")
+    mp = MANY * h * w / 1e6
+    for label, fn in (
+            ("compress_ycbcr loop", lambda: [compress_ycbcr(im, cfg)
+                                             for im in batch]),
+            ("compress_many", lambda: compress_many(batch, cfg, depth=2)),
+            ("decompress_to_ycbcr loop scan=host",
+             lambda: [decompress_to_ycbcr(b, scan="host") for b in blobs]),
+            ("decompress_many scan=host",
+             lambda: decompress_many(blobs, scan="host", depth=2)),
+            ("decompress_to_ycbcr loop scan=device",
+             lambda: [decompress_to_ycbcr(b, scan="device") for b in blobs]),
+            ("decompress_many scan=device",
+             lambda: decompress_many(blobs, scan="device", depth=2))):
+        ms = median_host_ms(fn, 3)
+        log(f"  {label}: {ms:.3f} ms median of 3 = {mp / ms * 1e3:.1f} "
+            f"MP/s  [{card}]")
     log("  after timing: " + nvidia_smi(
         "clocks.sm,power.draw,power.limit,temperature.gpu"))
 

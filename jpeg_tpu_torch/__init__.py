@@ -7,19 +7,27 @@ streams and planes that agree with the JAX package's f32 path (bitwise,
 except +-1 at provable round ties; ``utils/parity.py``).  This package
 imports ``torch`` and never ``jax`` or ``jpeg_tpu``.
 
-The main path (``compress_ycbcr`` / ``decompress_to_ycbcr``) runs four CUDA
-kernels (``ops/kernels.py``, sources in ``csrc/``), built with ``nvcc`` at
-first use.  Every public function takes ``device``: ``"cuda"`` (default)
-launches the kernels, ``"cpu"`` runs their plain PyTorch versions.
+The image API (``compress_ycbcr`` / ``compress_many``,
+``decompress_to_ycbcr`` / ``decompress_to_device`` / ``decompress_many``,
+``Jpeg``) and the band API (``compress_band`` / ``decompress_band``) run
+hand-written CUDA kernels (``ops/kernels.py``, sources in ``csrc/``), built
+with ``nvcc`` at first use.  Decode finds the block boundaries with the
+host C++ scan or on the device (``scan=``).  Every public function takes
+``device``: ``"cuda"`` (default) launches the kernels, ``"cpu"`` runs their
+plain PyTorch versions.
 """
 
 from .config import (BadArrayShapeError, BadQuantizationError,
                      BadRleCodeError, BadStreamError, Configuration,
                      EmptyArrayError, QuantizationMethod)
-from .api import compress_ycbcr, decompress_to_ycbcr, psnr
+from .api import (Jpeg, compress_band, compress_many, compress_ycbcr,
+                  decompress_band, decompress_many, decompress_to_device,
+                  decompress_to_ycbcr, psnr)
 
 __all__ = [
     "BadArrayShapeError", "BadQuantizationError", "BadRleCodeError",
-    "BadStreamError", "Configuration", "EmptyArrayError",
-    "QuantizationMethod", "compress_ycbcr", "decompress_to_ycbcr", "psnr",
+    "BadStreamError", "Configuration", "EmptyArrayError", "Jpeg",
+    "QuantizationMethod", "compress_band", "compress_many", "compress_ycbcr",
+    "decompress_band", "decompress_many", "decompress_to_device",
+    "decompress_to_ycbcr", "psnr",
 ]

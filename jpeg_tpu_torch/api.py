@@ -1,15 +1,23 @@
-"""Public codec API: image compress/decompress on a GPU (or the CPU).
+"""Public codec API: band- and image-level compress/decompress on a GPU (or
+the CPU).
 
-Counterpart of ``jpeg_tpu/api.py``'s main path: ``compress_ycbcr`` with
-device entropy coding (the content-sized two-phase encode) and
-``decompress_to_ycbcr`` with the host C++ boundary scan and device decode.
-Containers are the same bytes as the JAX package's.  Every function takes an
-explicit ``device``: ``"cuda"`` (the default) runs the hand-written kernels
-and raises without a GPU; ``"cpu"`` runs their plain PyTorch versions.
+Counterpart of ``jpeg_tpu/api.py``.  ``compress_band`` / ``decompress_band``
+work on single planes with host entropy coding; :class:`Jpeg` wraps the
+image functions.  ``compress_ycbcr`` / ``compress_many`` encode with device
+entropy coding (the content-sized two-phase encode);
+``decompress_to_ycbcr`` / ``decompress_to_device`` / ``decompress_many``
+find the block boundaries with the host C++ scan or the device scan
+(``scan=``) and decode on the device.  Containers are the same bytes as the
+JAX package's.  Every function takes an explicit ``device``: ``"cuda"`` (the
+default) runs the hand-written kernels and raises without a GPU; ``"cpu"``
+runs their plain PyTorch versions.
 """
 from __future__ import annotations
 
+import dataclasses
+from collections import deque
 from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
 
 import numpy as np
 import torch
@@ -18,8 +26,91 @@ from . import container, entropy
 from .config import BadRleCodeError, Configuration
 from .container import CompressedData
 from .entropy import device_codec as DC
+from .entropy import device_scan as DS
 from .ops.band import BandDecoder, BandEncoder
-from .utils.device import resolve_device
+from .utils.device import caller_stream, resolve_device
+
+
+def compress_band(a, config: Configuration, device="cuda") -> bytes:
+    """(H, W) band -> entropy-coded bytestream: the coefficient transform on
+    ``device``, the entropy coding on the host."""
+    dev = resolve_device(device)
+    band = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    levels = BandEncoder(config).to(dev)(band[None])[0]
+    return entropy.encode_levels(levels.cpu().numpy())
+
+
+def decompress_band(data: bytes, config: Configuration,
+                    device="cuda") -> np.ndarray:
+    """Band bytestream -> (H, W) int32 reconstruction: the entropy decode on
+    the host, the coefficient decode on ``device``."""
+    dev = resolve_device(device)
+    levels = entropy.decode_levels(bytes(data), config.num_blocks,
+                                   config.dct_size ** 2)
+    plane = BandDecoder(config).to(dev)(torch.from_numpy(levels)[None]
+                                        .to(dev))[0]
+    return plane.cpu().numpy().astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# Encode: start (phase 1 launched), advance (stats pulled, phase 2
+# launched), finish (stream pulled, container packed).
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class _Encode:
+    """One image's encode in flight on the device."""
+    config: Configuration
+    levels: torch.Tensor            # (3N, L) int32
+    stats: torch.Tensor             # (5,) int64: longest block, total,
+    #                                 band 0 bytes, band 1 bytes, max |level|
+    band_bytes: tuple = ()          # set by _advance_compress
+    stream: Optional[torch.Tensor] = None   # phase-2 buffer (advance)
+    overflow: Optional[torch.Tensor] = None  # phase-2 overflow flag
+
+
+def _start_compress(ycbcr: np.ndarray, config: Configuration,
+                    dev: torch.device) -> _Encode:
+    """Upload the image and launch phase 1 (the coefficient transform and
+    every block's stream length) without waiting for it."""
+    ycbcr = np.asarray(ycbcr)
+    if ycbcr.ndim != 3 or ycbcr.shape[2] != 3:
+        raise ValueError(f"expected (H, W, 3) YCbCr array, got {ycbcr.shape}")
+    img = torch.from_numpy(np.ascontiguousarray(ycbcr)).to(dev)
+    levels = BandEncoder(config).to(dev)(img.permute(2, 0, 1))  # (3, N, L)
+    flat = levels.reshape(-1, levels.shape[-1])
+    bb = DC.block_bytes_of(flat).to(torch.int64)
+    band_bytes = bb.reshape(3, -1).sum(dim=-1)
+    stats = torch.stack([bb.max(), bb.sum(), band_bytes[0], band_bytes[1],
+                         flat.abs().max().to(torch.int64)])
+    return _Encode(config, flat, stats)
+
+
+def _advance_compress(state: _Encode) -> _Encode:
+    """Pull phase 1's stats (waits for phase 1 only), reject an
+    unrepresentable amplitude BEFORE any entropy coding, and launch phase 2
+    (kernels K1, K2) at the sizes the stats give, without waiting for it.
+    Idempotent."""
+    if state.stream is not None:
+        return state
+    max_bb, total, b0, b1, mx = (int(x) for x in state.stats.cpu())
+    if mx > entropy.MAX_AMP:
+        raise BadRleCodeError(
+            f"amplitude {mx} exceeds the representable {entropy.MAX_AMP}")
+    state.stream, _, state.overflow = DC.encode_stream_sized(
+        state.levels, -(-max_bb // 4), total)
+    state.band_bytes = (b0, b1, total - b0 - b1)
+    return state
+
+
+def _finish_compress(state: _Encode) -> bytes:
+    """Wait for phase 2, check its overflow flag and pack the container."""
+    _advance_compress(state)
+    DC.check_sized_ok(state.overflow.cpu())
+    raw = state.stream.cpu().numpy().tobytes()
+    b0, b1, b2 = state.band_bytes
+    bands = [raw[:b0], raw[b0:b0 + b1], raw[b0 + b1:b0 + b1 + b2]]
+    return container.generate_data(state.config, CompressedData(*bands))
 
 
 def compress_ycbcr(ycbcr: np.ndarray, config: Configuration,
@@ -32,38 +123,166 @@ def compress_ycbcr(ycbcr: np.ndarray, config: Configuration,
     then one small pull of their stats (longest block, total, band lengths,
     max |level|) that rejects unrepresentable amplitudes BEFORE any entropy
     coding and sizes the rows and the buffer of phase 2 (kernels K1, K2)."""
-    ycbcr = np.asarray(ycbcr)
-    if ycbcr.ndim != 3 or ycbcr.shape[2] != 3:
-        raise ValueError(f"expected (H, W, 3) YCbCr array, got {ycbcr.shape}")
+    return _finish_compress(_start_compress(ycbcr, config,
+                                            resolve_device(device)))
+
+
+def compress_many(images, config: Configuration, device="cuda",
+                  depth: int = 2) -> list:
+    """Pipelined encode of an iterable of (H, W, 3) YCbCr images.
+
+    Keeps up to ``depth`` images in flight: image i's stream is pulled and
+    packed on a worker thread while the caller's thread uploads image i+1
+    and launches its kernels.  Results are identical to per-image
+    :func:`compress_ycbcr`."""
+    if depth < 1:
+        raise ValueError(f"depth must be >= 1, got {depth}")
     dev = resolve_device(device)
-    img = torch.from_numpy(np.ascontiguousarray(ycbcr)).to(dev)
-    levels = BandEncoder(config).to(dev)(img.permute(2, 0, 1))  # (3, N, L)
-    flat = levels.reshape(-1, levels.shape[-1])
-    bb = DC.block_bytes_of(flat).to(torch.int64)
-    band_bytes = bb.reshape(3, -1).sum(dim=-1)
-    stats = torch.stack([bb.max(), bb.sum(), band_bytes[0], band_bytes[1],
-                         flat.abs().max().to(torch.int64)])
-    max_bb, total, b0, b1, mx = (int(x) for x in stats.cpu())
-    if mx > entropy.MAX_AMP:
-        raise BadRleCodeError(
-            f"amplitude {mx} exceeds the representable {entropy.MAX_AMP}")
-    buf, _, bad = DC.encode_stream_sized(flat, -(-max_bb // 4), total)
-    DC.check_sized_ok(bad.cpu())
-    raw = buf.cpu().numpy().tobytes()
-    bands = [raw[:b0], raw[b0:b0 + b1], raw[b0 + b1:total]]
-    return container.generate_data(config, CompressedData(*bands))
+    on_caller_stream = caller_stream(dev)
+    pending: deque = deque()     # futures of bytes, then the newest state
+    out = []
+
+    def finish(state: _Encode) -> bytes:
+        with on_caller_stream():   # wait for the kernels launched here
+            return _finish_compress(state)
+
+    # One worker keeps the pulls in order.
+    with ThreadPoolExecutor(max_workers=1) as puller:
+        def resolve(item) -> bytes:
+            if isinstance(item, _Encode):
+                return _finish_compress(item)
+            return item.result()
+
+        for img in images:
+            if len(pending) >= depth:
+                out.append(resolve(pending.popleft()))
+            state = _start_compress(img, config, dev)
+            if pending:
+                # Advance the previous image (its stats pull and phase-2
+                # launch) after launching this one's phase 1, then hand its
+                # stream pull to the worker.
+                prev = pending.pop()
+                pending.append(puller.submit(finish,
+                                             _advance_compress(prev)))
+            pending.append(state)
+        while pending:
+            out.append(resolve(pending.popleft()))
+    return out
 
 
-def decompress_to_ycbcr(bytestream: bytes, device="cuda") -> np.ndarray:
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+def decompress_to_ycbcr(bytestream: bytes, device="cuda",
+                        scan: str = "auto") -> np.ndarray:
     """Container bytes -> (H, W, 3) uint8 YCbCr image.
 
-    The host does the serial O(bytes) boundary scan (C++, which also
-    validates the stream); bit parsing, dequantize, IDCT and clamp run on
-    ``device``."""
-    config, data = container.read_data(bytestream)
-    planes = _host_scan_decompress(config, [data.y, data.cb, data.cr],
-                                   resolve_device(device))
+    The block boundaries come from the host's serial boundary scan (C++,
+    which also validates the stream) or, with ``scan="device"``, from the
+    device scan (kernels K6, K8); ``"auto"`` picks by
+    :func:`.entropy.device_scan.scan_mode`.  Bit parsing, dequantize, IDCT
+    and clamp run on ``device``.  Both scans give the same planes and the
+    same errors."""
+    return _pull(_resolve_planes(_start_decompress(
+        bytestream, resolve_device(device), scan)))
+
+
+def decompress_to_device(bytestream: bytes, device="cuda",
+                         scan: str = "auto") -> torch.Tensor:
+    """Container bytes -> (3, H, W) uint8 planes as a tensor on ``device``,
+    not pulled to the host: for consumers whose next stage runs on the
+    device.  ``.cpu().numpy().transpose(1, 2, 0)`` gives
+    :func:`decompress_to_ycbcr`'s image."""
+    return _resolve_planes(_start_decompress(
+        bytestream, resolve_device(device), scan))
+
+
+def decompress_many(blobs, device="cuda", scan: str = "auto",
+                    depth: int = 2) -> list:
+    """Pipelined decode of an iterable of containers: image i's check and
+    plane pull run on a worker thread while the caller's thread scans and
+    launches image i+1.  Results are identical to per-image
+    :func:`decompress_to_ycbcr`."""
+    if depth < 1:
+        raise ValueError(f"depth must be >= 1, got {depth}")
+    dev = resolve_device(device)
+    on_caller_stream = caller_stream(dev)
+    pending: deque = deque()
+    out = []
+
+    def pull(res) -> np.ndarray:
+        with on_caller_stream():   # wait for the kernels launched here
+            return _pull(_resolve_planes(res))
+
+    # One worker keeps the pulls in order.
+    with ThreadPoolExecutor(max_workers=1) as puller:
+        for blob in blobs:
+            if len(pending) >= depth:
+                out.append(pending.popleft().result())
+            pending.append(puller.submit(
+                pull, _start_decompress(blob, dev, scan)))
+        while pending:
+            out.append(pending.popleft().result())
+    return out
+
+
+def _pull(planes: torch.Tensor) -> np.ndarray:
     return planes.cpu().numpy().transpose(1, 2, 0)
+
+
+def _start_decompress(bytestream: bytes, dev: torch.device, scan: str):
+    """Parse the container and launch the decode without waiting for it.
+
+    Returns the (3, H, W) planes on ``dev``, or, on the device-scan path, a
+    zero-argument resolver that reads the scan's check when called
+    (:func:`_resolve_planes`), so the caller's thread is free to launch the
+    next image first."""
+    config, data = container.read_data(bytestream)
+    streams = [data.y, data.cb, data.cr]
+    total = sum(map(len, streams))
+    if DS.scan_mode(total, scan, dev) == "device" and config.num_blocks > 0:
+        return _foreign_decode(config, streams, dev)
+    return _host_scan_decompress(config, streams, dev)
+
+
+def _resolve_planes(res) -> torch.Tensor:
+    """A :func:`_start_decompress` result as planes: call a device-scan
+    resolver, pass planes through."""
+    return res() if callable(res) else res
+
+
+def _foreign_decode(config: Configuration, streams, dev: torch.device):
+    """Host-free decode: the device scan of the three concatenated bands
+    (K6, then K8), K3 at its starts and K4, all launched before the scan's
+    check is known (K3 reads zeros past the stream, so garbage starts are
+    safe).  Returns a resolver that reads the check: planes when it holds,
+    else :func:`_device_scan_rejected`'s error."""
+    nb, L = config.num_blocks, config.dct_size ** 2
+    decoder = BandDecoder(config).to(dev)
+    stream = DC.upload_stream(b"".join(streams), dev)
+    ends = np.cumsum([len(s) for s in streams])
+    starts, ok = DS.scan_bands_starts(stream, ends, nb, L)
+    planes = decoder(DC.decode_stream(stream, starts, L).reshape(3, nb, L))
+
+    def resolve() -> torch.Tensor:
+        if not bool(ok):
+            _device_scan_rejected(config, streams)
+        return planes
+
+    return resolve
+
+
+def _device_scan_rejected(config: Configuration, streams):
+    """The device scan's check failed: the host scanner raises the stream's
+    canonical error.  A stream the host scanner accepts means the device
+    scan is wrong, and that raises too: the decode never moves to the host
+    scan behind the caller's back."""
+    nb, L = config.num_blocks, config.dct_size ** 2
+    for s in streams:
+        DS._host_scan(s, nb, L)
+    raise RuntimeError("the device scan rejected a stream the host scanner "
+                       "accepts (please report)")
 
 
 def _host_scan_decompress(config: Configuration, streams,
@@ -71,13 +290,12 @@ def _host_scan_decompress(config: Configuration, streams,
     """Host boundary scan + device decode; returns (3, H, W) uint8 planes
     on ``dev``."""
     nb, L = config.num_blocks, config.dct_size ** 2
-    buf = b"".join(streams)
     # Start the stream upload, then scan the three bands on host threads
     # (the C++ scanner releases the GIL).
-    stream = torch.frombuffer(bytearray(buf), dtype=torch.uint8).to(dev)
+    stream = DC.upload_stream(b"".join(streams), dev)
     with ThreadPoolExecutor(max_workers=3) as pool:
         scans = list(pool.map(
-            lambda s: entropy.scan_offsets(s, nb, L), streams))
+            lambda s: entropy.scan_offsets(s, nb, L, scan="host"), streams))
     starts, off = [], 0
     for s, sc in zip(streams, scans):
         starts.append(sc.astype(np.int64) + off)
@@ -85,6 +303,42 @@ def _host_scan_decompress(config: Configuration, streams,
     starts_t = torch.from_numpy(np.concatenate(starts)).to(dev)
     levels = DC.decode_stream(stream, starts_t, L)          # (3N, L)
     return BandDecoder(config).to(dev)(levels.reshape(3, nb, L))
+
+
+# ---------------------------------------------------------------------------
+# Image level
+# ---------------------------------------------------------------------------
+
+class Jpeg:
+    """Image-level codec (reference pipeline/__init__.py:98-124)."""
+
+    def __init__(self, config: Configuration, device="cuda"):
+        self.config = config
+        self.device = device
+
+    def compress(self, image) -> bytes:
+        """Compress a PIL image (converted to YCbCr) or (H, W, 3) array."""
+        return compress_ycbcr(_to_ycbcr_array(image), self.config,
+                              device=self.device)
+
+    @staticmethod
+    def decompress(bytestream: bytes, device="cuda", scan: str = "auto"):
+        """Decompress container bytes to a PIL YCbCr image (or an array if
+        PIL is unavailable)."""
+        arr = decompress_to_ycbcr(bytestream, device=device, scan=scan)
+        try:
+            from PIL import Image
+        except ImportError:
+            return arr
+        return Image.fromarray(arr, mode="YCbCr")
+
+
+def _to_ycbcr_array(image) -> np.ndarray:
+    if isinstance(image, np.ndarray):
+        return image
+    if image.mode != "YCbCr":
+        image = image.convert("YCbCr")
+    return np.asarray(image)
 
 
 def psnr(a: np.ndarray, b: np.ndarray, peak: float = 255.0) -> float:

@@ -26,4 +26,18 @@ inline unsigned grid_for(int64_t work, int threads) {
   return static_cast<unsigned>(blocks);
 }
 
+// The 32 stream bits that start at bit `bitpos`, MSB first, read through a
+// 40-bit window of five bytes.  Bytes outside [0, nbytes) read as zero, so
+// a walk that runs off the stream sees EOB headers and never faults.
+__device__ __forceinline__ uint32_t peek32(const uint8_t* __restrict__ s,
+                                           int64_t nbytes, int64_t bitpos) {
+  const int64_t byte = bitpos >> 3;
+  uint64_t v = 0;
+  for (int j = 0; j < 5; ++j) {
+    const int64_t b = byte + j;
+    v = (v << 8) | ((b >= 0 && b < nbytes) ? s[b] : 0u);
+  }
+  return static_cast<uint32_t>(v >> (8 - (bitpos & 7)));
+}
+
 }  // namespace jt

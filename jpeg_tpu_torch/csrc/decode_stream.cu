@@ -24,21 +24,12 @@
 // The TPU forms (the overlap table and its row gather, the alignment
 // prologue, little-endian word upload, the length sort that evened out
 // lockstep tiles) are gone: threads that finish early simply retire.
-// Reads past the stream end see zero bytes, which decode as EOB.
+// Reads past the stream end see zero bytes, which decode as EOB, so starts
+// from a boundary scan that failed its check (up to one past the end) are
+// safe to decode before the check is read.
 #include "common.cuh"
 
 namespace {
-
-__device__ __forceinline__ uint32_t peek32(const uint8_t* __restrict__ s,
-                                           int64_t nbytes, int64_t bitpos) {
-  const int64_t byte = bitpos >> 3;
-  uint64_t v = 0;
-  for (int j = 0; j < 5; ++j) {
-    const int64_t b = byte + j;
-    v = (v << 8) | ((b >= 0 && b < nbytes) ? s[b] : 0u);
-  }
-  return static_cast<uint32_t>(v >> (8 - (bitpos & 7)));
-}
 
 __global__ void decode_stream_kernel(const uint8_t* __restrict__ stream,
                                      int64_t nbytes,
@@ -52,7 +43,7 @@ __global__ void decode_stream_kernel(const uint8_t* __restrict__ stream,
     int64_t pos = starts[i] * 8;
     int widx = 0;
     for (int step = 0; step < max_steps; ++step) {
-      const uint32_t win = peek32(stream, nbytes, pos);
+      const uint32_t win = jt::peek32(stream, nbytes, pos);
       const int run = static_cast<int>(win >> 28);
       const int size = static_cast<int>((win >> 24) & 0xF);
       if (size == 0 && run == 0) break;                 // EOB

@@ -5,8 +5,9 @@ Backends, as in ``jpeg_tpu.entropy``:
     ``jpeg_tpu/entropy/native/entropy.cpp`` (see :mod:`.native_codec`);
   * ``numpy``   — the vectorized NumPy codec; always available.
 
-``encode_levels`` / ``decode_levels`` / ``scan_offsets`` use the native
-codec, and the NumPy one only where the C++ build fails.  The device
+``encode_levels`` / ``decode_levels`` use the native codec, and the NumPy
+one only where the C++ build fails; so does ``scan_offsets`` unless its
+``scan`` policy picks the device scan (:mod:`.device_scan`).  The device
 encoder and decoder live in :mod:`.device_codec`.
 """
 from __future__ import annotations
@@ -15,7 +16,7 @@ import threading
 
 import numpy as np
 
-from . import numpy_codec
+from . import device_scan, numpy_codec
 from .numpy_codec import MAX_AMP, MAX_RUN, MAX_SIZE
 
 _native = None
@@ -61,16 +62,20 @@ def decode_levels(data: bytes, num_blocks: int, L: int) -> np.ndarray:
     return numpy_codec.decode_levels(data, num_blocks, L)
 
 
-def scan_offsets(data: bytes, num_blocks: int, L: int) -> np.ndarray:
+def scan_offsets(data: bytes, num_blocks: int, L: int, scan: str = "auto",
+                 device="cuda") -> np.ndarray:
     """Validate a band stream and return each block's start byte offset.
 
-    The serial O(bytes) prelude to the block-parallel device decode.  C++
-    scanner when available, else the pure-Python word-window scanner (one
-    interpreted step per code: seconds per multi-megapixel image)."""
-    nat = _get_native()
-    if nat is not None:
-        return nat.scan_offsets(data, num_blocks, L)
-    return numpy_codec.scan_offsets(data, num_blocks, L)
+    The serial O(bytes) prelude to the block-parallel device decode.  The
+    host scan is the C++ scanner when available, else the pure-Python
+    word-window scanner (one interpreted step per code: seconds per
+    multi-megapixel image).  ``scan`` is the policy of
+    :func:`.device_scan.scan_mode` (``"auto"``, ``"host"`` or ``"device"``);
+    the device scan runs on ``device`` and gives the same starts and the
+    same errors (:func:`.device_scan.scan_offsets_hybrid`)."""
+    if device_scan.scan_mode(len(data), scan, device) == "device":
+        return device_scan.scan_offsets_hybrid(data, num_blocks, L, device)
+    return device_scan._host_scan(data, num_blocks, L)
 
 
 __all__ = ["MAX_AMP", "MAX_RUN", "MAX_SIZE", "decode_levels",

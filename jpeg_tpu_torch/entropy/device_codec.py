@@ -14,9 +14,10 @@ Encode, in two phases as in the JAX package:
    contiguous stream.  Its overflow check raises on the host
    (:func:`check_sized_ok`), as the JAX package's poison flag does.
 
-Decode: the host scans block boundaries (``entropy.scan_offsets``, C++) and
-kernel K3 (:func:`decode_stream`) decodes every block from the uploaded
-stream at its start.
+Decode: the block boundaries come from the host scan
+(``entropy.scan_offsets``, C++) or the device scan (:mod:`.device_scan`,
+kernels K6-K8), and kernel K3 (:func:`decode_stream`) decodes every block
+from the uploaded stream (:func:`upload_stream`) at its start.
 
 Bit and byte positions are int64 throughout.  The JAX package's int32
 bit-position cap and self-chunking (``_CAP_BITS``, ``max_chunk_blocks``,
@@ -106,9 +107,18 @@ def check_sized_ok(bad) -> None:
             "band's own phase-1 stats (block_bytes_of)")
 
 
+def upload_stream(data: bytes, dev: torch.device) -> torch.Tensor:
+    """Stream bytes -> (len,) uint8 tensor on ``dev``; an empty stream gives
+    an empty tensor, so the scanners, not the upload, report it."""
+    if not data:
+        return torch.empty(0, dtype=torch.uint8, device=dev)
+    return torch.frombuffer(bytearray(data), dtype=torch.uint8).to(dev)
+
+
 def decode_stream(stream_u8: torch.Tensor, starts: torch.Tensor,
                   L: int) -> torch.Tensor:
     """(nbytes,) uint8 stream + (N,) int64 block starts -> (N, L) int32
-    levels through kernel K3.  ``starts`` come from the host boundary scan
-    (``entropy.scan_offsets``), which also validates the stream."""
+    levels through kernel K3.  ``starts`` come from a boundary scan; a
+    device scan's starts may be garbage (up to one past the end) until its
+    check is read, and K3 reads zeros, not memory, past the stream."""
     return K.decode_stream_blocks(stream_u8, starts.to(torch.int64), L)

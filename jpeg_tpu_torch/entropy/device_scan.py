@@ -1,0 +1,155 @@
+"""Device boundary scan: every block's start offset without the host scan.
+
+Counterpart of ``jpeg_tpu/entropy/device_scan.py``.  Block b + 1 starts
+where block b ends, which looks serial, but every block starts on a byte,
+so the set of candidate starts is small enough to try them all:
+
+1. **Speculative per-byte walk** (kernel K6, :func:`end_table`): for every
+   byte q, a walker scans "the block that starts at q" with the host
+   scanner's rules and records its end byte in ``E[q]``, or the absorbing
+   ``ERR = P + 1`` for anything the host scanner rejects.
+2. **Orbit chase** (kernels K7 / K8, :func:`orbit_starts`,
+   :func:`scan_bands_starts`): the true starts are the orbit of the band's
+   first byte under E, ``s_0, s_{b+1} = E[s_b]``.
+3. **One-scalar check**: ERR absorbs, so the stream is well formed exactly
+   when the chain's end, one step past the last start, is the band's end
+   offset.  When it is, the starts are the host scanner's, walk for walk;
+   when it is not, the caller runs the host scanner for its error
+   (:func:`scan_offsets_hybrid`).
+
+Not carried over from the JAX package: the quarter-octave padding of the
+stream (it bounded XLA compile counts; here P is the stream's true length),
+and the walker-window rungs (``_SPAN_RUNGS``, ``span_rungs``, the rung
+cache), which trimmed the TPU's row funnel and sized its decode row
+gather.  K3 and K6 read the stream at their own positions, so the port
+runs the exact walk once.
+"""
+from __future__ import annotations
+
+import warnings
+
+import numpy as np
+import torch
+
+from ..ops import kernels as K
+from ..utils.device import resolve_device
+from . import numpy_codec
+from .device_codec import upload_stream
+
+# Stream bytes from which the auto policy scans on the device when the C++
+# scanner is missing, so that the host alternative is the pure-Python
+# scanner.  Measured by chip_smoke.py (phase 5) on an NVIDIA H100 80GB HBM3
+# at 700.00 W: a device scan call (upload, K6, K7, pull) took 0.10-0.15 ms
+# on a 1 KB stream against 0.26-0.39 ms for the pure-Python scanner, and
+# won at every larger size measured.  PERF.md lists the times.
+PY_SCAN_DEVICE_MIN_BYTES = 1 << 10
+
+SCANS = ("auto", "host", "device")
+
+
+def end_table(stream: torch.Tensor, n_bytes: int, L: int) -> torch.Tensor:
+    """(P,) uint8 stream buffer -> (P + 2,) int32 end table (kernel K6).
+
+    ``E[q]`` is the end byte of the block that starts at byte q, or
+    ``ERR = P + 1``; ``n_bytes`` is the stream's true length, where walkers
+    stop."""
+    return K.scan_walk(stream, n_bytes, L)
+
+
+def orbit_starts(E: torch.Tensor, target: int, num_blocks: int,
+                 s0: int = 0):
+    """Orbit of ``s0`` under E (kernel K7): ((num_blocks,) int64 starts,
+    0-d bool ok), ok when the orbit's end equals ``target``."""
+    return K.chase_starts(E, target, s0, num_blocks)
+
+
+def scan_table_and_starts(stream: torch.Tensor, n_bytes: int,
+                          num_blocks: int, L: int):
+    """One band: (stream buffer, true length) -> ((num_blocks,) int64
+    starts, 0-d bool ok).  The starts mean something only when ok."""
+    return orbit_starts(end_table(stream, n_bytes, L), n_bytes, num_blocks)
+
+
+def scan_bands_starts(stream: torch.Tensor, ends, num_blocks: int, L: int):
+    """Several bands, concatenated in ``stream``: ONE end table over the
+    buffer (K6), then one chase per band from its first byte (K8).
+
+    ``ends`` holds the cumulative band end offsets (band b occupies bytes
+    [ends[b-1], ends[b])); every band has ``num_blocks`` blocks.  Returns
+    ``((B * num_blocks,) int64 starts, 0-d bool ok)``, ok only when every
+    band's chain ends exactly at its own end offset.  E[q] > q, so a band
+    whose parse runs into the next band's bytes overshoots its end and
+    fails its check."""
+    ends = [int(e) for e in ends]
+    E = end_table(stream, ends[-1], L)
+    targets = torch.tensor(ends, dtype=torch.int64, device=stream.device)
+    s0s = torch.tensor([0] + ends[:-1], dtype=torch.int64,
+                       device=stream.device)
+    starts, oks = K.chase_starts_multi(E, targets, s0s, num_blocks)
+    return starts.reshape(-1), oks.all()
+
+
+def scan_mode(n_bytes: int = 1 << 30, scan: str = "auto",
+              device="cuda") -> str:
+    """Boundary-scan policy: ``"host"`` or ``"device"``.
+
+    ``scan="host"`` / ``"device"`` choose; ``"auto"`` scans on the host
+    whenever the C++ scanner exists, and always for ``device="cpu"`` (the
+    plain versions are no faster than the host scanner).  Without the C++
+    scanner the host alternative is the pure-Python scanner, and the device
+    scan takes streams of ``PY_SCAN_DEVICE_MIN_BYTES`` and more."""
+    if scan not in SCANS:
+        raise ValueError(f"scan must be one of {SCANS}, got {scan!r}")
+    if scan != "auto":
+        return scan
+    if torch.device(device).type != "cuda":
+        return "host"
+    from . import _get_native
+    if _get_native() is not None:
+        return "host"
+    return "device" if n_bytes >= PY_SCAN_DEVICE_MIN_BYTES else "host"
+
+
+def scan_offsets_device(data: bytes, num_blocks: int, L: int,
+                        device="cuda"):
+    """Run the device scan on one band's bytes.
+
+    Returns ``(starts int32 ndarray, ok bool)``.  The trivial cases are the
+    host scanners'; everything else the kernels decide.  Does NOT raise on
+    a malformed stream: :func:`scan_offsets_hybrid` reruns the host scanner
+    for its error."""
+    n = len(data)
+    if num_blocks == 0:
+        return np.zeros(0, np.int32), n == 0
+    if n == 0:
+        return np.zeros(num_blocks, np.int32), False
+    stream = upload_stream(data, resolve_device(device))
+    starts, ok = scan_table_and_starts(stream, n, num_blocks, L)
+    return starts.cpu().numpy().astype(np.int32), bool(ok)
+
+
+def scan_offsets_hybrid(data: bytes, num_blocks: int, L: int,
+                        device="cuda") -> np.ndarray:
+    """Device scan with the host scanner behind it: the same result and the
+    same errors as the host scanner.
+
+    A valid stream gives the device's starts.  Anything malformed fails the
+    device's single check, and the host scanner runs to raise its error."""
+    starts, ok = scan_offsets_device(data, num_blocks, L, device)
+    if ok:
+        return starts
+    host = _host_scan(data, num_blocks, L)             # expected to raise
+    warnings.warn(
+        "device scan rejected a stream the host scanner accepts; "
+        "falling back to the host starts (please report)", RuntimeWarning,
+        stacklevel=2)
+    return host
+
+
+def _host_scan(data: bytes, num_blocks: int, L: int) -> np.ndarray:
+    """The host scanner: C++ when it built, else pure Python."""
+    from . import _get_native
+    nat = _get_native()
+    if nat is not None:
+        return nat.scan_offsets(data, num_blocks, L)
+    return numpy_codec.scan_offsets(data, num_blocks, L)

@@ -73,7 +73,7 @@ class BandEncoder(nn.Module):
             raise NotImplementedError(
                 f"{config.height}x{config.width} at block_size "
                 f"{config.block_size}, dct_size {config.dct_size} needs edge "
-                "padding: the padded encode is ROADMAP.md Queue 1 item 6")
+                "padding: the padded encode is ROADMAP.md Queue 1 item 7")
         d, bs = config.dct_size, config.block_size
         self.config = config
         self.d, self.D2, self.L = d, d * bs, d * d
@@ -114,7 +114,7 @@ class BandDecoder(nn.Module):
             raise NotImplementedError(
                 f"{config.quantization!r}: a non-integer (or int32-wrapping) "
                 "divisor restores by truncation, which the decode kernel does "
-                "not take (ROADMAP.md Queue 1 item 6)")
+                "not take (ROADMAP.md Queue 1 item 7)")
         self.config = config
         self.D, self.L = d * bs, d * d
         self.register_buffer("op_t", _f32(

@@ -1,6 +1,6 @@
-"""The codec's four GPU kernels: wrappers, plain PyTorch versions, counts.
+"""The codec's GPU kernels: wrappers, plain PyTorch versions, counts.
 
-Counterpart of ``jpeg_tpu/ops/pallas_kernels.py`` for the main path.  Each
+Counterpart of ``jpeg_tpu/ops/pallas_kernels.py``.  Each
 kernel is CUDA C++ under ``jpeg_tpu_torch/csrc/``, compiled by ``nvcc`` for
 ``sm_90a`` at first use into ``build/cuda/<source hash>/`` and loaded with
 ctypes (plain C entry points, see ``csrc/common.cuh``).
@@ -13,6 +13,9 @@ deposit_rows           csrc/compact.cu              _merge_rows_kernel +
                                                     compact_rows' gather
 decode_stream_blocks   csrc/decode_stream.cu        _decode_stream_kernel
 decode_blocks          csrc/decode_blocks.cu        _decode_kernel
+scan_walk              csrc/scan_walk.cu            _scan_walk_kernel_single
+chase_starts           csrc/chase.cu                _chase_kernel
+chase_starts_multi     csrc/chase.cu                _chase_multi_kernel
 =====================  ===========================  ======================
 
 Dispatch is by the device of the tensors a wrapper is given: CPU tensors
@@ -44,7 +47,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "cuda")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -61,17 +64,22 @@ _SIGNATURES = {
     "jt_decode_stream": (_P, _I64, _P, _I64, _I32, _P, _I32, _P),
     # levels, deq, op_t, n, K, M, out, device, stream
     "jt_decode_blocks": (_P, _P, _P, _I64, _I32, _I32, _P, _I32, _P),
+    # stream bytes, P, limit bits, L, end table, device, stream
+    "jt_scan_walk": (_P, _I64, _I64, _I32, _P, _I32, _P),
+    # end table, P2, target, s0, nb, starts, ok, device, stream
+    "jt_chase": (_P, _I64, _I64, _I64, _I64, _P, _P, _I32, _P),
+    # end table, P2, targets, s0s, B, nb, starts, ok, device, stream
+    "jt_chase_multi": (_P, _I64, _P, _P, _I64, _I64, _P, _P, _I32, _P),
 }
 
 
 def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    for cand in ([os.path.join(home, "bin", "nvcc")] if home else []) + [
-            shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels "
-                       "are built from jpeg_tpu_torch/csrc at first use")
+    raise RuntimeError("nvcc not found on PATH or in /usr/local/cuda/bin; "
+                       "the CUDA kernels are built from jpeg_tpu_torch/csrc "
+                       "at first use")
 
 
 def _sources():
@@ -93,23 +101,46 @@ def library_path() -> str:
 def build() -> str:
     """Compile ``csrc/*.cu`` into one shared library unless it exists.
 
-    Returns its path.  ``nvcc``'s output (``-Xptxas -v``: registers, shared
-    memory and spills per kernel) is kept beside it in ``build.log``.
+    One ``nvcc`` per source, all started together, then one link.  Returns
+    the library's path.  ``nvcc``'s output (``-Xptxas -v``: registers,
+    shared memory and spills per kernel) is kept beside it in ``build.log``.
     """
     so = library_path()
     if os.path.exists(so):
         return so
-    os.makedirs(os.path.dirname(so), exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, *_sources()]
+    out_dir = os.path.dirname(so)
+    os.makedirs(out_dir, exist_ok=True)
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    log = (f"$ {' '.join(cmd)}\n{res.stdout}{res.stderr}"
-           f"\n[{time.perf_counter() - t0:.1f} s, exit {res.returncode}]\n")
-    with open(os.path.join(os.path.dirname(so), "build.log"), "w") as f:
-        f.write(log)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed building the CUDA kernels:\n{log}")
+    jobs = []
+    for src in _sources():
+        obj = os.path.join(out_dir, f"{os.path.basename(src)}.{tag}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC, "-c", src, "-o", obj]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, failed = [], False
+    for cmd, _, proc in jobs:
+        out = proc.communicate()[0]
+        log.append(f"$ {' '.join(cmd)}\n{out}[exit {proc.returncode}]\n")
+        failed |= proc.returncode != 0
+    tmp = f"{so}.{tag}"
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", tmp, *(obj for _, obj, _ in jobs)]
+        res = subprocess.run(cmd, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+        log.append(f"$ {' '.join(cmd)}\n{res.stdout}[exit {res.returncode}]\n")
+        failed = res.returncode != 0
+    for _, obj, _ in jobs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    log.append(f"[{time.perf_counter() - t0:.1f} s]\n")
+    with open(os.path.join(out_dir, "build.log"), "w") as f:
+        f.write("".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed building the CUDA kernels:\n"
+                           + "".join(log))
     os.replace(tmp, so)
     return so
 
@@ -127,6 +158,16 @@ def _library() -> ctypes.CDLL:
             lib.jt_error_string.restype = ctypes.c_char_p
             _lib = lib
     return _lib
+
+
+_count_lock = threading.Lock()
+
+
+def _count(wrapper) -> None:
+    """One launch of ``wrapper``'s kernel.  The pipelined API launches from
+    a worker thread as well as the caller's, so the update takes a lock."""
+    with _count_lock:
+        wrapper.launches += 1
 
 
 def _launch(name: str, device: torch.device, *args) -> None:
@@ -255,7 +296,7 @@ def encode_stream_rows(levels: torch.Tensor, W: int):
     if n:
         _launch("jt_encode_rows", levels.device, levels.data_ptr(), n, L, W,
                 rows.data_ptr(), blk_bytes.data_ptr())
-        encode_stream_rows.launches += 1
+        _count(encode_stream_rows)
     return rows, blk_bytes
 
 
@@ -306,7 +347,7 @@ def deposit_rows(rows: torch.Tensor, blk_bytes: torch.Tensor,
         _launch("jt_deposit_rows", rows.device, rows.data_ptr(),
                 blk_bytes.data_ptr(), offsets.data_ptr(), n, W,
                 out.data_ptr(), cap)
-        deposit_rows.launches += 1
+        _count(deposit_rows)
     return out
 
 
@@ -370,7 +411,7 @@ def decode_stream_blocks(stream: torch.Tensor, starts: torch.Tensor,
     if n:
         _launch("jt_decode_stream", stream.device, stream.data_ptr(),
                 stream.shape[0], starts.data_ptr(), n, L, out.data_ptr())
-        decode_stream_blocks.launches += 1
+        _count(decode_stream_blocks)
     return out
 
 
@@ -406,12 +447,177 @@ def decode_blocks(levels: torch.Tensor, op_t: torch.Tensor,
     if n and M:
         _launch("jt_decode_blocks", levels.device, levels.data_ptr(),
                 deq.data_ptr(), op_t.data_ptr(), n, K, M, out.data_ptr())
-        decode_blocks.launches += 1
+        _count(decode_blocks)
     return out
 
 
+# ---------------------------------------------------------------------------
+# K6: stream bytes -> speculative end table (csrc/scan_walk.cu)
+# ---------------------------------------------------------------------------
+
+def scan_walk_plain(stream: torch.Tensor, n_bytes: int,
+                    L: int) -> torch.Tensor:
+    """Plain version of K6: every byte position walks at once, one unit per
+    step, for at most L + L//15 + 2 steps (``jpeg_tpu``'s
+    ``device_scan._end_table_xla``, in int64, stopping once every walker
+    has settled)."""
+    P = stream.shape[0]
+    dev = stream.device
+    err = P + 1
+    E = torch.full((P + 2,), err, dtype=torch.int32, device=dev)
+    if P == 0:
+        return E
+    # 16-bit big-endian windows: the 8-bit header at bit position p is
+    # w16[p >> 3] >> (8 - (p & 7)).
+    b = torch.cat([stream.to(torch.int64),
+                   torch.zeros(1, dtype=torch.int64, device=dev)])
+    w16 = (b[:-1] << 8) | b[1:]
+    limit = 8 * n_bytes
+    pos = torch.arange(P, dtype=torch.int64, device=dev) * 8
+    widx = torch.zeros(P, dtype=torch.int64, device=dev)
+    done = torch.zeros(P, dtype=torch.bool, device=dev)
+    bad = torch.zeros(P, dtype=torch.bool, device=dev)
+    for _ in range(L + L // MAX_RUN + 2):
+        live = ~(done | bad)
+        if not bool(live.any()):
+            break
+        h = (w16[(pos >> 3).clamp(max=P - 1)] >> (8 - (pos & 7))) & 0xFF
+        run = h >> 4
+        size = h & 0xF
+        eob = h == 0
+        chain = h == 0xF0
+        code = size != 0
+        new_bad = live & ((pos + 8 > limit) | (~code & ~eob & ~chain)
+                          | (code & (pos + 8 + size > limit))
+                          | (code & (widx + run >= L)))
+        npos = torch.where(code, pos + 8 + size, pos + 8)
+        npos = torch.where(eob, (npos + 7) & ~7, npos)
+        nwidx = widx + torch.where(chain, MAX_RUN,
+                                   torch.where(code, run + 1, 0))
+        upd = live & ~new_bad
+        pos = torch.where(upd, npos, pos)
+        widx = torch.where(upd, nwidx, widx)
+        done = done | (upd & eob)
+        bad = bad | new_bad
+    E[:P] = torch.where(done & ~bad, pos >> 3, err).to(torch.int32)
+    return E
+
+
+def scan_walk(stream: torch.Tensor, n_bytes: int, L: int) -> torch.Tensor:
+    """(P,) uint8 stream buffer -> (P + 2,) int32 end table E: E[q] is the
+    end byte of the block that starts at byte q, or ERR = P + 1 where the
+    host scanner would reject it; E[P] = E[P + 1] = ERR.  Walkers read no
+    further than ``n_bytes`` (<= P), the stream's true length."""
+    _check(stream, "stream", torch.uint8, 1)
+    P = stream.shape[0]
+    if not 0 <= n_bytes <= P:
+        raise ValueError(f"n_bytes must be in [0, {P}], got {n_bytes}")
+    if P + 2 >= 1 << 31:
+        raise ValueError(f"a {P}-byte stream overflows the int32 end table")
+    if L < 1:
+        raise ValueError(f"L must be >= 1, got {L}")
+    if not _on_cuda(stream):
+        return scan_walk_plain(stream, n_bytes, L)
+    E = torch.empty(P + 2, dtype=torch.int32, device=stream.device)
+    _launch("jt_scan_walk", stream.device, stream.data_ptr(), P,
+            8 * n_bytes, L, E.data_ptr())
+    _count(scan_walk)
+    return E
+
+
+# ---------------------------------------------------------------------------
+# K7, K8: end table -> orbit starts + end check (csrc/chase.cu)
+# ---------------------------------------------------------------------------
+
+def chase_starts_multi_plain(E: torch.Tensor, targets: torch.Tensor,
+                             s0s: torch.Tensor, nb: int):
+    """Plain version of K7 and K8: pointer doubling (``jpeg_tpu``'s
+    ``device_scan`` ``T <- T[T]`` orbit fill).  Round r gathers starts
+    [2^r, 2^(r+1)) through the table squared r times, so nb starts take
+    ceil(log2(nb + 1)) gather rounds over E.  Returns ((B, nb) int64
+    starts, (B,) bool ok)."""
+    P2 = E.shape[0]
+    B = targets.shape[0]
+    dev = E.device
+    if nb == 0:
+        return (torch.zeros((B, 0), dtype=torch.int64, device=dev),
+                s0s == targets)
+    rounds = max(1, nb.bit_length())              # ceil(log2(nb + 1))
+    orbit = torch.zeros((B, 1 << rounds), dtype=torch.int64, device=dev)
+    orbit[:, 0] = s0s
+    T = E.to(torch.int64)
+    filled = 1
+    for _ in range(rounds):
+        orbit[:, filled:2 * filled] = T[orbit[:, :filled].clamp(0, P2 - 1)]
+        if 2 * filled < orbit.shape[1]:             # the last square is unused
+            T = T[T.clamp(0, P2 - 1)]
+        filled *= 2
+    starts = orbit[:, :nb].contiguous()
+    end = E[starts[:, nb - 1].clamp(0, P2 - 1)].to(torch.int64)
+    return starts, end == targets
+
+
+def chase_starts_plain(E: torch.Tensor, target: int, s0: int, nb: int):
+    """Plain version of K7 (one chain of :func:`chase_starts_multi_plain`)."""
+    one = torch.ones(1, dtype=torch.int64, device=E.device)
+    starts, ok = chase_starts_multi_plain(E, one * target, one * s0, nb)
+    return starts[0], ok[0]
+
+
+# The chase kernels index E in int32 and step a window past the last entry.
+_CHASE_MAX_ENTRIES = (1 << 31) - (1 << 14)
+
+
+def _check_chase(E: torch.Tensor, nb: int) -> None:
+    _check(E, "E", torch.int32, 1)
+    if not 1 <= E.shape[0] < _CHASE_MAX_ENTRIES:
+        raise ValueError(f"the end table needs 1 to {_CHASE_MAX_ENTRIES - 1} "
+                         f"entries, got {E.shape[0]}")
+    if not 0 <= nb < 1 << 31:
+        raise ValueError(f"nb must be in [0, 2**31), got {nb}")
+
+
+def chase_starts(E: torch.Tensor, target: int, s0: int, nb: int):
+    """(P2,) int32 end table -> ((nb,) int64 starts, 0-d bool ok): the
+    chain s0, E[s0], E[E[s0]], ... and whether its end, one step past the
+    last start, equals ``target``.  Positions are clamped to [0, P2 - 1]
+    before they index E, whose entries must lie in that range (K6's do)."""
+    _check_chase(E, nb)
+    if not _on_cuda(E):
+        return chase_starts_plain(E, target, s0, nb)
+    starts = torch.empty(nb, dtype=torch.int64, device=E.device)
+    ok = torch.empty((), dtype=torch.bool, device=E.device)
+    _launch("jt_chase", E.device, E.data_ptr(), E.shape[0], target, s0, nb,
+            starts.data_ptr(), ok.data_ptr())
+    _count(chase_starts)
+    return starts, ok
+
+
+def chase_starts_multi(E: torch.Tensor, targets: torch.Tensor,
+                       s0s: torch.Tensor, nb: int):
+    """(P2,) int32 end table + (B,) int64 targets and chain starts ->
+    ((B, nb) int64 starts, (B,) bool ok): B chains of :func:`chase_starts`
+    in one launch, one per band of a container."""
+    _check_chase(E, nb)
+    _check(targets, "targets", torch.int64, 1)
+    _check(s0s, "s0s", torch.int64, 1)
+    B = targets.shape[0]
+    if s0s.shape[0] != B:
+        raise ValueError(f"{B} targets but {s0s.shape[0]} chain starts")
+    if not _on_cuda(E, targets, s0s):
+        return chase_starts_multi_plain(E, targets, s0s, nb)
+    starts = torch.empty((B, nb), dtype=torch.int64, device=E.device)
+    ok = torch.empty(B, dtype=torch.bool, device=E.device)
+    if B:
+        _launch("jt_chase_multi", E.device, E.data_ptr(), E.shape[0],
+                targets.data_ptr(), s0s.data_ptr(), B, nb, starts.data_ptr(),
+                ok.data_ptr())
+        _count(chase_starts_multi)
+    return starts, ok
+
+
 KERNELS = (encode_stream_rows, deposit_rows, decode_stream_blocks,
-           decode_blocks)
+           decode_blocks, scan_walk, chase_starts, chase_starts_multi)
 
 
 def reset_launch_counts() -> None:

@@ -27,6 +27,19 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def caller_stream(dev: torch.device):
+    """A context-manager factory that makes the calling thread's current
+    CUDA stream current in another thread.
+
+    Threads start on the device's default stream, so a worker that pulls
+    the results of kernels launched on the caller's stream enters this
+    first: its copies then wait for those kernels."""
+    if dev.type != "cuda":
+        return contextlib.nullcontext
+    stream = torch.cuda.current_stream(dev)
+    return lambda: torch.cuda.stream(stream)
+
+
 # The settings that govern float32 matrix products: cuBLAS on the GPU and
 # oneDNN on the CPU (where "medium" precision means bf16).  The codec runs no
 # convolution, so cuDNN's settings do not bear on it and are left alone.

@@ -14,6 +14,8 @@ version).  Tolerances:
   provable .5 tie (``jpeg_tpu/utils/parity.py``; f32 summation orders
   differ).
 """
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -220,9 +222,27 @@ def test_wrappers_check_inputs_and_never_fall_back():
     before = K.launch_counts()
     K.decode_stream_blocks(torch.zeros(4, dtype=torch.uint8),
                            torch.zeros(1, dtype=torch.int64), 64)
+    K.scan_walk(torch.zeros(4, dtype=torch.uint8), 4, 64)
+    K.chase_starts(torch.zeros(6, dtype=torch.int32), 0, 0, 3)
+    K.chase_starts_multi(torch.zeros(6, dtype=torch.int32),
+                         torch.zeros(2, dtype=torch.int64),
+                         torch.zeros(2, dtype=torch.int64), 3)
     assert K.launch_counts() == before      # the plain version launches nothing
     assert set(before) == {"encode_stream_rows", "deposit_rows",
-                           "decode_stream_blocks", "decode_blocks"}
+                           "decode_stream_blocks", "decode_blocks",
+                           "scan_walk", "chase_starts", "chase_starts_multi"}
+    with pytest.raises(ValueError, match="n_bytes"):
+        K.scan_walk(torch.zeros(4, dtype=torch.uint8), 5, 64)
+    with pytest.raises(ValueError, match="int32"):
+        K.chase_starts(torch.zeros(6, dtype=torch.int64), 0, 0, 3)
+    with pytest.raises(ValueError, match="chain starts"):
+        K.chase_starts_multi(torch.zeros(6, dtype=torch.int32),
+                             torch.zeros(2, dtype=torch.int64),
+                             torch.zeros(3, dtype=torch.int64), 3)
+    with pytest.raises(ValueError, match="different devices"):
+        K.chase_starts_multi(torch.zeros(6, dtype=torch.int32),
+                             torch.zeros(2, dtype=torch.int64, device="meta"),
+                             torch.zeros(2, dtype=torch.int64), 3)
 
 
 def test_kernel_build_is_keyed_by_source_hash():
@@ -232,4 +252,6 @@ def test_kernel_build_is_keyed_by_source_hash():
     assert path.startswith(K.BUILD_ROOT)
     assert "-gencode" in K.NVCC_FLAGS and "arch=compute_90a,code=sm_90a" in \
         K.NVCC_FLAGS
-    assert len(K._sources()) == 4
+    assert [os.path.basename(p) for p in K._sources()] == [
+        "chase.cu", "compact.cu", "decode_blocks.cu", "decode_stream.cu",
+        "encode_stream.cu", "scan_walk.cu"]
