@@ -11,12 +11,16 @@ result):
 
 1. Require a CUDA device; print ``nvidia-smi``'s card name and power limit
    and the torch / CUDA versions.
-2. Build the seven CUDA kernels from ``jpeg_tpu_torch/csrc`` with ``nvcc``
+2. Build the eight CUDA kernels from ``jpeg_tpu_torch/csrc`` with ``nvcc``
    (into ``build/cuda/``) and print the build time and ptxas' resource use.
 3. Hold each kernel against its plain PyTorch version on the card at the
    main path's shapes (2048x2048 image: N = 49,152 blocks, L = 64), on the
    image's own levels and on adversarial random levels: K1-K3 must be
    bit-equal, K4 equal except +-1 at provable ties (``utils/parity.py``).
+   K5 runs on the image's pixel blocks with the DFT operator, at d = 8
+   (N = 196,608: the three bands at bs 1; four quantizers) and at d = 24
+   (N = 2,700, L = 576): equal to its plain version and to an f64 numpy
+   reference except +-1 at provable ties, the flips counted.
    The boundary-scan kernels K6-K8 run on the image's three-band stream,
    the adversarial levels' stream, 24 single-byte mutations of the image
    stream and pure garbage bytes: the end table, the starts and the checks
@@ -41,13 +45,30 @@ result):
    ``entropy.scan_offsets(scan="device")`` must give each band's host
    starts, the device scan must accept both images' streams, each decode
    must have launched K3 once, and K6, K7 and K8 must have been launched.
+   Phase 4c drives the BASELINE configurations on the synthetic image, each
+   through ``compress_ycbcr`` and ``decompress_to_ycbcr`` with both scans,
+   counts reset just before and read just after each: (1) bs 4, DCT,
+   none; (2) bs 5, qtable (padded: ``sep_pad``); (3) bs 4, d 24, divide
+   1000 (padded, L = 576, K4 at M = 9,216); (4a) bs 4, DFT, qtable (the
+   joint product, then K4 with the DFT operator); (4b) bs 3, DFT, none
+   (ragged: K5), also at 4000x3000; (5) bs 2, divide 2.5 (the truncating
+   plain decode).  All at 2048x2048 but the 4000x3000 frame.  Each band
+   stream must equal the host C++ encoder's stream of the same levels, the
+   levels and planes must be within the tie contract of the f64 references
+   (for (5) a numpy f64 ``trunc`` chain), the two scans' planes bit-equal;
+   K5 must launch in (4b) only and K4 in every configuration but (5).
+   Phase 4d runs the f64 parity mode on the card
+   (``dtype=torch.float64``): encoding the golden images must reproduce
+   the six ``tests/golden/*.jc`` blobs byte for byte, and decoding them
+   (both scans) the manifest's plane hashes.
 5. Time encode and decode (host array -> host bytes -> host array) with
    CUDA events, median of 7 after a warm-up, decode with either scan; the
    host-free decode stage by stage; each kernel against its plain version; the pure-Python scanner, the C++
    scanner and the device scan at stream sizes from 256 bytes to 256 KB
    (where the device scan overtakes the pure-Python one); and
    ``compress_many`` / ``decompress_many`` at depth 2 over 8 images of
-   2048x2048.
+   2048x2048; K5 and its plain version (mean of 50 launches); and encode
+   and decode of BASELINE configurations (2), (3), (4a) and (4b).
 
 The last three lines of standard output are a JSON object of per-kernel
 results, the card's ``name, power.limit`` and
@@ -55,6 +76,7 @@ results, the card's ``name, power.limit`` and
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import subprocess
@@ -64,6 +86,7 @@ import time
 import numpy as np
 import torch
 
+REPO = os.path.dirname(os.path.abspath(__file__))
 SIZES = ((2048, 2048), (2160, 3840))       # (height, width)
 REPS = 7
 PSNR_MIN_DB = 30.0
@@ -77,6 +100,8 @@ KERNEL_INFO = {   # wrapper name -> (source, Pallas kernel it replaces)
                              "jpeg_tpu/ops/pallas_kernels.py:127"),
     "decode_blocks": ("jpeg_tpu_torch/csrc/decode_blocks.cu",
                       "jpeg_tpu/ops/pallas_kernels.py:73"),
+    "encode_blocks": ("jpeg_tpu_torch/csrc/encode_blocks.cu",
+                      "jpeg_tpu/ops/pallas_kernels.py:63"),
     "scan_walk": ("jpeg_tpu_torch/csrc/scan_walk.cu",
                   "jpeg_tpu/ops/pallas_kernels.py:857"),
     "chase_starts": ("jpeg_tpu_torch/csrc/chase.cu",
@@ -90,6 +115,21 @@ HOST_FREE_PATH = ("scan_walk", "chase_starts", "chase_starts_multi")
 MUTANTS = 24
 CROSSOVER_BYTES = (256, 1 << 10, 4 << 10, 16 << 10, 64 << 10, 256 << 10)
 MANY = 8
+# K5 checks: (dct_size, blocks or None for all of the image's, quantizers)
+K5_CASES = ((8, None, (("none", {}), ("qtable", {}), ("discard", {"keep": 3}),
+                       ("divide", {"divisor": 3}))),
+            (24, 2700, (("none", {}), ("divide", {"divisor": 1000}))))
+# BASELINE configurations: label, (height, width), block_size, dct_size,
+# transform, quantizer.  (4b) is the one that reaches K5; (5) decodes by
+# truncation without K4.
+BASELINE = (("1", (2048, 2048), 4, 8, "DCT", ("none", {})),
+            ("2", (2048, 2048), 5, 8, "DCT", ("qtable", {})),
+            ("3", (2048, 2048), 4, 24, "DCT", ("divide", {"divisor": 1000})),
+            ("4a", (2048, 2048), 4, 8, "DFT", ("qtable", {})),
+            ("4b", (2048, 2048), 3, 8, "DFT", ("none", {})),
+            ("4b", (3000, 4000), 3, 8, "DFT", ("none", {})),
+            ("5", (2048, 2048), 2, 8, "DCT", ("divide", {"divisor": 2.5})))
+TIMED_BASELINE = ("2", "3", "4a", "4b")
 
 
 def log(*a) -> None:
@@ -109,6 +149,18 @@ def synth_image(h: int, w: int, channels: int = 3) -> np.ndarray:
                  + 8 * rng.standard_normal((h, w)))
         out.append(np.clip(plane, 0, 255))
     return np.stack(out, axis=-1).astype(np.uint8)
+
+
+def golden_image(h: int, w: int) -> np.ndarray:
+    """The generator of the golden blobs' images (``tests/test_golden.py``,
+    seed 42)."""
+    y, x = np.mgrid[0:h, 0:w].astype(np.float64)
+    rng = np.random.default_rng(42)
+    img = np.stack([128 + 70 * np.sin(x / 13) * np.cos(y / 11),
+                    128 + 50 * np.cos(x / 7),
+                    np.clip(8 * rng.standard_normal((h, w)) + 128, 0, 255)],
+                   -1)
+    return np.clip(img, 0, 255).astype(np.uint8)
 
 
 def adversarial_levels(n: int, L: int, seed: int = 1) -> np.ndarray:
@@ -210,7 +262,9 @@ def main() -> int:
     from jpeg_tpu_torch.entropy import native_codec, numpy_codec
     from jpeg_tpu_torch.ops import kernels as K
     from jpeg_tpu_torch.ops.band import BandDecoder, BandEncoder
-    from jpeg_tpu_torch.ops.blocks import crop, deblockify
+    from jpeg_tpu_torch.ops import quantize as Q
+    from jpeg_tpu_torch.ops import transform as T
+    from jpeg_tpu_torch.ops.blocks import blockify, crop, deblockify
     from jpeg_tpu_torch.utils import parity
 
     dev = torch.device("cuda", 0)
@@ -417,6 +471,41 @@ def main() -> int:
         err=k4_err, fn=lambda: K.decode_blocks(flat, dec.op_t, dec.deq),
         plain=lambda: K.decode_blocks_plain(flat, dec.op_t, dec.deq))
 
+    def k5_closures(vec, op_t, vecs):
+        return (lambda: K.encode_blocks(vec, op_t, *vecs),
+                lambda: K.encode_blocks_plain(vec, op_t, *vecs))
+
+    k5_err = 0
+    for d5, n5, quants in K5_CASES:
+        vec = blockify(img_t.to(torch.float32), d5).reshape(-1, d5 * d5)
+        vec = vec[:n5].contiguous()
+        vec_np = vec.to(torch.float64).cpu().numpy()
+        op = T.dft_encode_operator(d5)
+        op_t = torch.from_numpy(op.T.astype(np.float32)).contiguous().to(dev)
+        for qname, qparams in quants:
+            ev = Q.epilogue_vectors(QuantizationMethod(qname, **qparams), d5)
+            vecs = [torch.from_numpy(v.astype(np.float32)).to(dev)
+                    for v in ev]
+            got = K.encode_blocks(vec, op_t, *vecs)
+            plain = K.encode_blocks_plain(vec, op_t, *vecs)
+            ref, ties = parity.blocks_reference_and_ties(vec_np, op, *ev)
+            g, p = got.cpu().numpy(), plain.cpu().numpy()
+            label = f"K5 d={d5} N={vec.shape[0]} {qname}"
+            parity.assert_tie_equal(g, p, ties, f"{label} vs plain")
+            parity.assert_tie_equal(g, ref, ties, f"{label} vs f64")
+            k5_err = max(k5_err, max_diff(got, plain))
+            check(True, f"{label}: equal to plain and to the f64 reference "
+                  f"except +-1 at ties ({int((g != p).sum())} tie flips vs "
+                  f"plain, {int((g != ref).sum())} vs f64, "
+                  f"{int(ties.sum())} tie positions)")
+            if d5 == 8 and qname == "none":
+                fn, plain_fn = k5_closures(vec, op_t, vecs)
+                results["encode_blocks"] = dict(fn=fn, plain=plain_fn,
+                                                plain_reps=50, shape=(
+                                                    f"N={vec.shape[0]}, "
+                                                    f"L={d5 * d5}"))
+    results["encode_blocks"]["err"] = k5_err
+
     log("== phase 4: main path (compress_ycbcr -> decompress_to_ycbcr)")
     images = {hw: synth_image(*hw) for hw in SIZES}
     runs = {}
@@ -566,6 +655,78 @@ def main() -> int:
     check(all(counts_hf[name] > 0 for name in HOST_FREE_PATH),
           "K6, K7 and K8 were launched by the host-free run")
 
+    log("== phase 4c: the BASELINE configurations (compress_ycbcr -> "
+        "decompress_to_ycbcr, scan='host' and scan='device')")
+    baseline_runs = {}
+    k5_launches = 0
+    for label, (h, w), bs, d, transform, (qname, qparams) in BASELINE:
+        cfg = Configuration(width=w, height=h, block_size=bs, dct_size=d,
+                            transform=transform,
+                            quantization=QuantizationMethod(qname, **qparams))
+        im = images[(h, w)] if (h, w) in images else synth_image(h, w)
+        K.reset_launch_counts()
+        blob = compress_ycbcr(im, cfg)
+        rec = decompress_to_ycbcr(blob, scan="host")
+        rec_dev = decompress_to_ycbcr(blob, scan="device")
+        counts_c = K.launch_counts()
+        baseline_runs[(label, h, w)] = (cfg, im, blob)
+        log(f"  -- ({label}) {h}x{w}, bs {bs}, d {d}, {transform}, {qname} "
+            f"{qparams or ''}: {len(blob)} bytes ({im.nbytes / len(blob):.2f}"
+            f"x); launch counts {counts_c}")
+        if label == "4b":
+            k5_launches += counts_c["encode_blocks"]
+        check((counts_c["encode_blocks"] > 0) == (label == "4b")
+              and (counts_c["decode_blocks"] > 0) == (label != "5")
+              and all(counts_c[n] > 0 for n in MAIN_PATH if n !=
+                      "decode_blocks"),
+              f"K5 launched {counts_c['encode_blocks']} times, K4 "
+              f"{counts_c['decode_blocks']} (K5 only on DFT over ragged "
+              "geometry, K4 wherever the dequantizer is an integer)")
+        cfg2, data = container.read_data(blob)
+        streams = [data.y, data.cb, data.cr]
+        check(cfg2 == cfg, "container re-parses")
+        img_t = torch.from_numpy(im).to(dev).permute(2, 0, 1)
+        lv = BandEncoder(cfg).to(dev)(img_t).cpu().numpy()     # (3, N, L)
+        check(all(native_codec.encode_levels(lv[b]) == streams[b]
+                  for b in range(3)),
+              "band streams byte-equal to the host C++ encoder's")
+        flips_e = flips_d = 0
+        for b in range(3):
+            ref, ties = parity.encode_reference_and_ties(cfg, im[:, :, b])
+            parity.assert_tie_equal(lv[b], ref, ties, f"levels band {b}")
+            flips_e += int((lv[b] != ref).sum())
+            pref, pties = parity.decode_reference_and_ties(cfg, lv[b])
+            parity.assert_tie_equal(rec[:, :, b], pref, pties,
+                                    f"planes band {b}")
+            flips_d += int((rec[:, :, b] != pref).sum())
+        check(True, f"levels and planes equal the f64 references except +-1 "
+              f"at ties ({flips_e} level, {flips_d} pixel tie flips)")
+        check(np.array_equal(rec, rec_dev),
+              "scan='device' planes bit-equal to scan='host' planes")
+        log(f"  PSNR {psnr(im, rec):.2f} dB")
+
+    log("== phase 4d: the f64 parity mode on the card (the golden blobs)")
+    gdir = os.path.join(REPO, "tests", "golden")
+    with open(os.path.join(gdir, "manifest.json")) as f:
+        manifest = json.load(f)
+    K.reset_launch_counts()
+    for name, entry in sorted(manifest.items()):
+        kw = dict(entry["config"])
+        q = kw.pop("quantization", None)
+        cfg = Configuration(**kw, quantization=QuantizationMethod(
+            q["name"], **q["params"]) if q else None)
+        with open(os.path.join(gdir, f"{name}.jc"), "rb") as f:
+            want = f.read()
+        blob = compress_ycbcr(golden_image(cfg.height, cfg.width), cfg,
+                              dtype=torch.float64)
+        hashes = {hashlib.sha256(decompress_to_ycbcr(
+            want, scan=scan, dtype=torch.float64).tobytes()).hexdigest()
+            for scan in ("host", "device")}
+        check(blob == want and hashes == {entry["decoded_sha256"]},
+              f"{name}: the f64 encode is the golden blob byte for byte, and "
+              "its decode (both scans) the recorded plane hash")
+    log(f"  launch counts over the parity run: {K.launch_counts()}")
+
     log(f"== phase 5: timing (CUDA events; {card})")
     for (h, w), (blob, _) in runs.items():
         cfg = cfg_for(h, w)
@@ -581,7 +742,11 @@ def main() -> int:
                 f"{REPS} = {mp / dec_ms * 1e3:.1f} MP/s  [{card}]")
     log("  -- host-free decode by stage (each stage ended by a device "
         f"sync, host clock, median of {REPS})")
-    for (h, w), (blob, _) in runs.items():
+    staged = [(f"{h}x{w}", blob) for (h, w), (blob, _) in runs.items()]
+    staged += [(f"({label}) {h}x{w}", blob)
+               for (label, h, w), (_, _, blob) in baseline_runs.items()
+               if label in ("3", "4b") and (h, w) == SIZES[0]]
+    for tag, blob in staged:
         stages = {}
 
         def stage(name, fn):
@@ -601,26 +766,26 @@ def main() -> int:
         cfg, data = stage("parse container",
                           lambda: container.read_data(blob))
         streams = [data.y, data.cb, data.cr]
-        nbh = cfg.num_blocks
+        nbh, Lc = cfg.num_blocks, cfg.dct_size ** 2
         ends = np.cumsum([len(x) for x in streams]).tolist()
         stream = stage("upload stream", lambda: DC.upload_stream(
             b"".join(streams), dev))
-        E = stage("K6 end table", lambda: DS.end_table(stream, ends[-1], L))
+        E = stage("K6 end table", lambda: DS.end_table(stream, ends[-1], Lc))
         tg = torch.tensor(ends, dtype=torch.int64, device=dev)
         s0 = torch.tensor([0] + ends[:-1], dtype=torch.int64, device=dev)
         starts, oks = stage("K8 chase", lambda: K.chase_starts_multi(
             E, tg, s0, nbh))
         stage("check pull", lambda: bool(oks.all()))
         levels = stage("K3 levels", lambda: DC.decode_stream(
-            stream, starts.reshape(-1), L))
-        planes = stage("K4 + layout (module build included)",
-                       lambda: BandDecoder(cfg).to(dev)(
-                           levels.reshape(3, nbh, L)))
+            stream, starts.reshape(-1), Lc))
+        bdec = stage("BandDecoder build", lambda: BandDecoder(cfg).to(dev))
+        planes = stage("K4 + layout", lambda: bdec(levels.reshape(3, nbh,
+                                                                  Lc)))
         stage("download planes",
               lambda: planes.cpu().numpy().transpose(1, 2, 0))
         total = median_call_ms(
             lambda: decompress_to_ycbcr(blob, scan="device"), REPS)
-        log(f"  {h}x{w}: " + ", ".join(f"{k} {v:.3f}"
+        log(f"  {tag}: " + ", ".join(f"{k} {v:.3f}"
                                        for k, v in stages.items())
             + f"; sum {sum(stages.values()):.3f} ms, unfenced call "
             f"{total:.3f} ms  [{card}]")
@@ -628,11 +793,15 @@ def main() -> int:
     kernels = []
     for name, r in results.items():
         ms = time_ms(r["fn"], 50)
-        plain_ms = time_ms(r["plain"], 5)
+        plain_ms = time_ms(r["plain"], r.get("plain_reps", 5))
+        shape = r.get("shape", f"N={n_blocks}, L={L}, stream {img_ends[-1]} "
+                      "bytes")
         log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-            f"(N={n_blocks}, L={L}, stream {img_ends[-1]} bytes)  [{card}]")
+            f"({shape})  [{card}]")
         src, repl = KERNEL_INFO[name]
         launches = counts_hf[name] if name in HOST_FREE_PATH else counts[name]
+        if name == "encode_blocks":
+            launches = k5_launches
         err = scan_err[name] if name in HOST_FREE_PATH else r["err"]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": repl, "launches": launches,
@@ -686,6 +855,21 @@ def main() -> int:
         ms = median_host_ms(fn, 3)
         log(f"  {label}: {ms:.3f} ms median of 3 = {mp / ms * 1e3:.1f} "
             f"MP/s  [{card}]")
+    log("  -- BASELINE configurations host->host (CUDA events, median of "
+        f"{REPS})")
+    for (label, h, w), (cfg, im, blob) in baseline_runs.items():
+        if label not in TIMED_BASELINE:
+            continue
+        mp = h * w / 1e6
+        enc = median_call_ms(lambda: compress_ycbcr(im, cfg), REPS)
+        line = (f"  ({label}) {h}x{w}: encode {enc:.3f} ms = "
+                f"{mp / enc * 1e3:.1f} MP/s")
+        for scan in ("host", "device"):
+            dec_ms = median_call_ms(
+                lambda: decompress_to_ycbcr(blob, scan=scan), REPS)
+            line += (f"; decode scan={scan} {dec_ms:.3f} ms = "
+                     f"{mp / dec_ms * 1e3:.1f} MP/s")
+        log(line + f"  [{card}]")
     log("  after timing: " + nvidia_smi(
         "clocks.sm,power.draw,power.limit,temperature.gpu"))
 

@@ -14,7 +14,9 @@ hand-written CUDA kernels (``ops/kernels.py``, sources in ``csrc/``), built
 with ``nvcc`` at first use.  Decode finds the block boundaries with the
 host C++ scan or on the device (``scan=``).  Every public function takes
 ``device``: ``"cuda"`` (default) launches the kernels, ``"cpu"`` runs their
-plain PyTorch versions.
+plain PyTorch versions; and ``dtype``: ``None`` (f32) or ``torch.float64``,
+the parity mode, bit-exact with the reference (small images: its
+transforms loop over blocks on the host).
 """
 
 from .config import (BadArrayShapeError, BadQuantizationError,

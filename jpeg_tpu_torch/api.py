@@ -10,7 +10,10 @@ find the block boundaries with the host C++ scan or the device scan
 (``scan=``) and decode on the device.  Containers are the same bytes as the
 JAX package's.  Every function takes an explicit ``device``: ``"cuda"`` (the
 default) runs the hand-written kernels and raises without a GPU; ``"cpu"``
-runs their plain PyTorch versions.
+runs their plain PyTorch versions.  Every function also takes ``dtype``:
+``None`` (f32, the default) or ``torch.float64``, the parity mode, which
+reproduces the reference bit for bit through the reference-order host
+transforms (for small images: they loop over blocks).
 """
 from __future__ import annotations
 
@@ -31,24 +34,25 @@ from .ops.band import BandDecoder, BandEncoder
 from .utils.device import caller_stream, resolve_device
 
 
-def compress_band(a, config: Configuration, device="cuda") -> bytes:
+def compress_band(a, config: Configuration, device="cuda",
+                  dtype=None) -> bytes:
     """(H, W) band -> entropy-coded bytestream: the coefficient transform on
     ``device``, the entropy coding on the host."""
     dev = resolve_device(device)
     band = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-    levels = BandEncoder(config).to(dev)(band[None])[0]
+    levels = BandEncoder(config, dtype).to(dev)(band[None])[0]
     return entropy.encode_levels(levels.cpu().numpy())
 
 
-def decompress_band(data: bytes, config: Configuration,
-                    device="cuda") -> np.ndarray:
+def decompress_band(data: bytes, config: Configuration, device="cuda",
+                    dtype=None) -> np.ndarray:
     """Band bytestream -> (H, W) int32 reconstruction: the entropy decode on
     the host, the coefficient decode on ``device``."""
     dev = resolve_device(device)
     levels = entropy.decode_levels(bytes(data), config.num_blocks,
                                    config.dct_size ** 2)
-    plane = BandDecoder(config).to(dev)(torch.from_numpy(levels)[None]
-                                        .to(dev))[0]
+    plane = BandDecoder(config, dtype).to(dev)(torch.from_numpy(levels)[None]
+                                               .to(dev))[0]
     return plane.cpu().numpy().astype(np.int32)
 
 
@@ -70,14 +74,14 @@ class _Encode:
 
 
 def _start_compress(ycbcr: np.ndarray, config: Configuration,
-                    dev: torch.device) -> _Encode:
+                    dev: torch.device, dtype) -> _Encode:
     """Upload the image and launch phase 1 (the coefficient transform and
     every block's stream length) without waiting for it."""
     ycbcr = np.asarray(ycbcr)
     if ycbcr.ndim != 3 or ycbcr.shape[2] != 3:
         raise ValueError(f"expected (H, W, 3) YCbCr array, got {ycbcr.shape}")
     img = torch.from_numpy(np.ascontiguousarray(ycbcr)).to(dev)
-    levels = BandEncoder(config).to(dev)(img.permute(2, 0, 1))  # (3, N, L)
+    levels = BandEncoder(config, dtype).to(dev)(img.permute(2, 0, 1))
     flat = levels.reshape(-1, levels.shape[-1])
     bb = DC.block_bytes_of(flat).to(torch.int64)
     band_bytes = bb.reshape(3, -1).sum(dim=-1)
@@ -114,7 +118,7 @@ def _finish_compress(state: _Encode) -> bytes:
 
 
 def compress_ycbcr(ycbcr: np.ndarray, config: Configuration,
-                   device="cuda") -> bytes:
+                   device="cuda", dtype=None) -> bytes:
     """(H, W, 3) uint8 YCbCr image -> container bytes.
 
     All three bands (including luma) go through the same subsample path,
@@ -124,11 +128,11 @@ def compress_ycbcr(ycbcr: np.ndarray, config: Configuration,
     max |level|) that rejects unrepresentable amplitudes BEFORE any entropy
     coding and sizes the rows and the buffer of phase 2 (kernels K1, K2)."""
     return _finish_compress(_start_compress(ycbcr, config,
-                                            resolve_device(device)))
+                                            resolve_device(device), dtype))
 
 
 def compress_many(images, config: Configuration, device="cuda",
-                  depth: int = 2) -> list:
+                  depth: int = 2, dtype=None) -> list:
     """Pipelined encode of an iterable of (H, W, 3) YCbCr images.
 
     Keeps up to ``depth`` images in flight: image i's stream is pulled and
@@ -156,7 +160,7 @@ def compress_many(images, config: Configuration, device="cuda",
         for img in images:
             if len(pending) >= depth:
                 out.append(resolve(pending.popleft()))
-            state = _start_compress(img, config, dev)
+            state = _start_compress(img, config, dev, dtype)
             if pending:
                 # Advance the previous image (its stats pull and phase-2
                 # launch) after launching this one's phase 1, then hand its
@@ -175,7 +179,7 @@ def compress_many(images, config: Configuration, device="cuda",
 # ---------------------------------------------------------------------------
 
 def decompress_to_ycbcr(bytestream: bytes, device="cuda",
-                        scan: str = "auto") -> np.ndarray:
+                        scan: str = "auto", dtype=None) -> np.ndarray:
     """Container bytes -> (H, W, 3) uint8 YCbCr image.
 
     The block boundaries come from the host's serial boundary scan (C++,
@@ -185,21 +189,21 @@ def decompress_to_ycbcr(bytestream: bytes, device="cuda",
     and clamp run on ``device``.  Both scans give the same planes and the
     same errors."""
     return _pull(_resolve_planes(_start_decompress(
-        bytestream, resolve_device(device), scan)))
+        bytestream, resolve_device(device), scan, dtype)))
 
 
 def decompress_to_device(bytestream: bytes, device="cuda",
-                         scan: str = "auto") -> torch.Tensor:
+                         scan: str = "auto", dtype=None) -> torch.Tensor:
     """Container bytes -> (3, H, W) uint8 planes as a tensor on ``device``,
     not pulled to the host: for consumers whose next stage runs on the
     device.  ``.cpu().numpy().transpose(1, 2, 0)`` gives
     :func:`decompress_to_ycbcr`'s image."""
     return _resolve_planes(_start_decompress(
-        bytestream, resolve_device(device), scan))
+        bytestream, resolve_device(device), scan, dtype))
 
 
 def decompress_many(blobs, device="cuda", scan: str = "auto",
-                    depth: int = 2) -> list:
+                    depth: int = 2, dtype=None) -> list:
     """Pipelined decode of an iterable of containers: image i's check and
     plane pull run on a worker thread while the caller's thread scans and
     launches image i+1.  Results are identical to per-image
@@ -221,7 +225,7 @@ def decompress_many(blobs, device="cuda", scan: str = "auto",
             if len(pending) >= depth:
                 out.append(pending.popleft().result())
             pending.append(puller.submit(
-                pull, _start_decompress(blob, dev, scan)))
+                pull, _start_decompress(blob, dev, scan, dtype)))
         while pending:
             out.append(pending.popleft().result())
     return out
@@ -231,7 +235,8 @@ def _pull(planes: torch.Tensor) -> np.ndarray:
     return planes.cpu().numpy().transpose(1, 2, 0)
 
 
-def _start_decompress(bytestream: bytes, dev: torch.device, scan: str):
+def _start_decompress(bytestream: bytes, dev: torch.device, scan: str,
+                      dtype=None):
     """Parse the container and launch the decode without waiting for it.
 
     Returns the (3, H, W) planes on ``dev``, or, on the device-scan path, a
@@ -242,8 +247,8 @@ def _start_decompress(bytestream: bytes, dev: torch.device, scan: str):
     streams = [data.y, data.cb, data.cr]
     total = sum(map(len, streams))
     if DS.scan_mode(total, scan, dev) == "device" and config.num_blocks > 0:
-        return _foreign_decode(config, streams, dev)
-    return _host_scan_decompress(config, streams, dev)
+        return _foreign_decode(config, streams, dev, dtype)
+    return _host_scan_decompress(config, streams, dev, dtype)
 
 
 def _resolve_planes(res) -> torch.Tensor:
@@ -252,14 +257,15 @@ def _resolve_planes(res) -> torch.Tensor:
     return res() if callable(res) else res
 
 
-def _foreign_decode(config: Configuration, streams, dev: torch.device):
+def _foreign_decode(config: Configuration, streams, dev: torch.device,
+                    dtype):
     """Host-free decode: the device scan of the three concatenated bands
     (K6, then K8), K3 at its starts and K4, all launched before the scan's
     check is known (K3 reads zeros past the stream, so garbage starts are
     safe).  Returns a resolver that reads the check: planes when it holds,
     else :func:`_device_scan_rejected`'s error."""
     nb, L = config.num_blocks, config.dct_size ** 2
-    decoder = BandDecoder(config).to(dev)
+    decoder = BandDecoder(config, dtype).to(dev)
     stream = DC.upload_stream(b"".join(streams), dev)
     ends = np.cumsum([len(s) for s in streams])
     starts, ok = DS.scan_bands_starts(stream, ends, nb, L)
@@ -286,7 +292,7 @@ def _device_scan_rejected(config: Configuration, streams):
 
 
 def _host_scan_decompress(config: Configuration, streams,
-                          dev: torch.device) -> torch.Tensor:
+                          dev: torch.device, dtype) -> torch.Tensor:
     """Host boundary scan + device decode; returns (3, H, W) uint8 planes
     on ``dev``."""
     nb, L = config.num_blocks, config.dct_size ** 2
@@ -302,7 +308,7 @@ def _host_scan_decompress(config: Configuration, streams,
         off += len(s)
     starts_t = torch.from_numpy(np.concatenate(starts)).to(dev)
     levels = DC.decode_stream(stream, starts_t, L)          # (3N, L)
-    return BandDecoder(config).to(dev)(levels.reshape(3, nb, L))
+    return BandDecoder(config, dtype).to(dev)(levels.reshape(3, nb, L))
 
 
 # ---------------------------------------------------------------------------
@@ -312,20 +318,23 @@ def _host_scan_decompress(config: Configuration, streams,
 class Jpeg:
     """Image-level codec (reference pipeline/__init__.py:98-124)."""
 
-    def __init__(self, config: Configuration, device="cuda"):
+    def __init__(self, config: Configuration, device="cuda", dtype=None):
         self.config = config
         self.device = device
+        self.dtype = dtype
 
     def compress(self, image) -> bytes:
         """Compress a PIL image (converted to YCbCr) or (H, W, 3) array."""
         return compress_ycbcr(_to_ycbcr_array(image), self.config,
-                              device=self.device)
+                              device=self.device, dtype=self.dtype)
 
     @staticmethod
-    def decompress(bytestream: bytes, device="cuda", scan: str = "auto"):
+    def decompress(bytestream: bytes, device="cuda", scan: str = "auto",
+                   dtype=None):
         """Decompress container bytes to a PIL YCbCr image (or an array if
         PIL is unavailable)."""
-        arr = decompress_to_ycbcr(bytestream, device=device, scan=scan)
+        arr = decompress_to_ycbcr(bytestream, device=device, scan=scan,
+                                  dtype=dtype)
         try:
             from PIL import Image
         except ImportError:

@@ -13,6 +13,7 @@ deposit_rows           csrc/compact.cu              _merge_rows_kernel +
                                                     compact_rows' gather
 decode_stream_blocks   csrc/decode_stream.cu        _decode_stream_kernel
 decode_blocks          csrc/decode_blocks.cu        _decode_kernel
+encode_blocks          csrc/encode_blocks.cu        _encode_kernel
 scan_walk              csrc/scan_walk.cu            _scan_walk_kernel_single
 chase_starts           csrc/chase.cu                _chase_kernel
 chase_starts_multi     csrc/chase.cu                _chase_multi_kernel
@@ -39,6 +40,7 @@ import time
 import torch
 
 from ..utils.device import full_f32_matmul
+from .quantize import epilogue
 
 MAX_RUN = 15
 MAX_SIZE = 15
@@ -64,6 +66,8 @@ _SIGNATURES = {
     "jt_decode_stream": (_P, _I64, _P, _I64, _I32, _P, _I32, _P),
     # levels, deq, op_t, n, K, M, out, device, stream
     "jt_decode_blocks": (_P, _P, _P, _I64, _I32, _I32, _P, _I32, _P),
+    # x, op_t, mul, div, mask, n, K, L, out, device, stream
+    "jt_encode_blocks": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _P, _I32, _P),
     # stream bytes, P, limit bits, L, end table, device, stream
     "jt_scan_walk": (_P, _I64, _I64, _I32, _P, _I32, _P),
     # end table, P2, target, s0, nb, starts, ok, device, stream
@@ -452,6 +456,46 @@ def decode_blocks(levels: torch.Tensor, op_t: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# K5: transform product + quantizer epilogue (csrc/encode_blocks.cu)
+# ---------------------------------------------------------------------------
+
+def encode_blocks_plain(x: torch.Tensor, op_t: torch.Tensor,
+                        mul: torch.Tensor, div: torch.Tensor,
+                        mask: torch.Tensor) -> torch.Tensor:
+    """Plain version of K5: an f32 ``matmul`` in full f32, then the
+    quantizer epilogue (``ops/quantize.py:epilogue``)."""
+    with full_f32_matmul():
+        coeffs = torch.matmul(x, op_t)
+    return epilogue(coeffs, mul, div, mask).to(torch.int32)
+
+
+def encode_blocks(x: torch.Tensor, op_t: torch.Tensor, mul: torch.Tensor,
+                  div: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """(N, K) f32 pixel blocks, (K, L) f32 operator, three (L,) f32
+    quantizer vectors -> (N, L) int32 ``round((x @ op_t) * mul / div) *
+    mask``."""
+    _check(x, "x", torch.float32, 2)
+    _check(op_t, "op_t", torch.float32, 2)
+    for name, v in (("mul", mul), ("div", div), ("mask", mask)):
+        _check(v, name, torch.float32, 1)
+    n, K = x.shape
+    L = op_t.shape[1]
+    if op_t.shape[0] != K or any(v.shape[0] != L for v in (mul, div, mask)):
+        raise ValueError(f"x (N, {K}) needs op_t ({K}, L) and (L,) vectors, "
+                         f"got {tuple(op_t.shape)}, {tuple(mul.shape)}, "
+                         f"{tuple(div.shape)}, {tuple(mask.shape)}")
+    if not _on_cuda(x, op_t, mul, div, mask):
+        return encode_blocks_plain(x, op_t, mul, div, mask)
+    out = torch.empty((n, L), dtype=torch.int32, device=x.device)
+    if n and L:
+        _launch("jt_encode_blocks", x.device, x.data_ptr(), op_t.data_ptr(),
+                mul.data_ptr(), div.data_ptr(), mask.data_ptr(), n, K, L,
+                out.data_ptr())
+        _count(encode_blocks)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # K6: stream bytes -> speculative end table (csrc/scan_walk.cu)
 # ---------------------------------------------------------------------------
 
@@ -617,7 +661,8 @@ def chase_starts_multi(E: torch.Tensor, targets: torch.Tensor,
 
 
 KERNELS = (encode_stream_rows, deposit_rows, decode_stream_blocks,
-           decode_blocks, scan_walk, chase_starts, chase_starts_multi)
+           decode_blocks, encode_blocks, scan_walk, chase_starts,
+           chase_starts_multi)
 
 
 def reset_launch_counts() -> None:

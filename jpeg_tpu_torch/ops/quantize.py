@@ -66,7 +66,10 @@ def epilogue(coeffs_zz: torch.Tensor, mul: torch.Tensor, div: torch.Tensor,
 
 def quantize(coeffs_zz: torch.Tensor, method: QuantizationMethod,
              dct_size: int) -> torch.Tensor:
-    """Elementwise quantization of zigzag coefficients (float -> float)."""
+    """Elementwise quantization of zigzag coefficients (float -> float), in
+    their dtype: ``round(c / divisor)`` is a true division (the divisor is
+    an (L,) tensor, never a host scalar, which CUDA would turn into a
+    reciprocal multiply) and the qtable's is ``round(c * (1/q))``."""
     mul, div, mask = (torch.as_tensor(v, dtype=coeffs_zz.dtype,
                                       device=coeffs_zz.device)
                       for v in epilogue_vectors(method, dct_size))
@@ -111,4 +114,35 @@ def dequant_int_vector(method: QuantizationMethod, dct_size: int):
         return None
     if name == "qtable":
         return qtable_zigzag(dct_size).astype(np.int64)
+    raise ValueError(name)
+
+
+def dequantize(levels_zz: torch.Tensor, method: QuantizationMethod,
+               dct_size: int, parity: bool = False) -> torch.Tensor:
+    """Inverse ('restore') step on integer levels (``jpeg_tpu/ops/
+    quantize.py:dequantize``).
+
+    The reference stores restored values back into its int levels array,
+    so a non-integer divisor's product truncates toward zero.  The parity
+    mode computes in int64 / f64 and returns int64.  The f32 mode returns
+    the levels' integer dtype for exact integer products, and f32 where
+    the JAX package's f32 mode does: ``trunc(f32(level) * divisor)`` for a
+    non-integer divisor, and ``f32(level) * divisor`` for an integer one
+    whose int32 product could wrap."""
+    name = method.name
+    if name in ("none", "discard"):
+        return levels_zz
+    if name == "divide":
+        d = method.divisor
+        if float(d) == int(d):
+            if parity or int(d) <= (2 ** 31 - 1) // MAX_AMP:
+                return levels_zz * int(d)
+            return levels_zz.to(torch.float32) * float(d)
+        ftype = torch.float64 if parity else torch.float32
+        prod = torch.trunc(levels_zz.to(ftype) * float(d))
+        return prod.to(levels_zz.dtype) if parity else prod
+    if name == "qtable":
+        q = torch.as_tensor(qtable_zigzag(dct_size).astype(np.int64),
+                            dtype=levels_zz.dtype, device=levels_zz.device)
+        return levels_zz * q
     raise ValueError(name)

@@ -1,10 +1,11 @@
-"""Block-transform operators: unnormalized DCT-II fused with zigzag.
+"""Block transforms: unnormalized DCT-II and the real part of the DFT,
+fused with zigzag.
 
-The numpy (float64) operator builders of ``jpeg_tpu/ops/transform.py`` that
-the main path uses, with the same arithmetic so the operators compare
-bitwise.  They are the codec's "weights": built once per configuration in
-f64 and cast to f32 where a module stores them as buffers
-(``ops/band.py``).
+The numpy (float64) operator builders of ``jpeg_tpu/ops/transform.py``,
+with the same arithmetic so the operators compare bitwise.  They are the
+codec's "weights": built once per configuration in f64 and cast to f32
+where a module stores them as buffers (``ops/band.py``).  The f64 parity
+mode's reference-order host transforms (``exact_*``) are here too.
 
 The DCT matrix is the reference's *unnormalized* DCT-II,
 ``A[k, n] = cos(pi/N * (n + 0.5) * k)``; the inverse is ``A.T @ D^-2`` with
@@ -97,12 +98,8 @@ def combined_decode_operator(d: int, bs: int,
 
     Replica rows are identical rows of the plain decode operator, so each
     replica's f32 dot product is bitwise equal and rounding after the
-    product equals round-then-inflate.  This slice ports the DCT operator
-    only; DFT is queued in ROADMAP.md.
+    product equals round-then-inflate.
     """
-    if transform != "DCT":
-        raise NotImplementedError(
-            f"transform {transform!r}: only DCT is ported (ROADMAP Queue 1)")
     D = d * bs
     rep = np.zeros((D * D, d * d), dtype=np.float64)
     for p in range(d):
@@ -110,4 +107,182 @@ def combined_decode_operator(d: int, bs: int,
             for i in range(bs):
                 for j in range(bs):
                     rep[(p * bs + i) * D + (q * bs + j), p * d + q] = 1.0
-    return rep @ decode_operator(d)
+    dec = (decode_operator(d) if transform == "DCT"
+           else dft_decode_operator(d))
+    return rep @ dec
+
+
+@functools.lru_cache(maxsize=None)
+def inverse_zigzag_permutation(n: int) -> np.ndarray:
+    zz = zigzag_permutation(n)
+    inv = np.empty_like(zz)
+    inv[zz] = np.arange(n * n, dtype=np.int32)
+    return inv
+
+
+@functools.lru_cache(maxsize=None)
+def combined_encode_operator(d: int, bs: int,
+                             transform: str = "DCT") -> np.ndarray:
+    """(d*d, (d*bs)^2) operator fusing the mean-pool subsample with the
+    transform + zigzag: ``coeffs_zz = OP2 @ vec(pixel_block)`` where the
+    pixel block is the (d*bs) x (d*bs) region that subsamples to one d x d
+    transform block.  Only valid when the band needs no edge padding
+    (pixel-domain edge replication does not commute with mean-pooling at
+    the seam)."""
+    D = d * bs
+    sub = np.zeros((d * d, D * D), dtype=np.float64)
+    w = 1.0 / (bs * bs)
+    for p in range(d):
+        for q in range(d):
+            for i in range(bs):
+                for j in range(bs):
+                    sub[p * d + q, (p * bs + i) * D + (q * bs + j)] = w
+    enc = (encode_operator(d) if transform == "DCT"
+           else dft_encode_operator(d))
+    return enc @ sub
+
+
+@functools.lru_cache(maxsize=None)
+def dft_encode_operator(n: int) -> np.ndarray:
+    """(d*d, d*d) real operator ``M`` with ``re(fft2)_zz = M @ vec(block)``.
+
+    For real pixel blocks ``vec(fft2(X)) = (F kron F) vec(X)`` with the
+    symmetric DFT matrix F, and the codec keeps only the real part (the
+    reference casts the complex coefficients to int), so the DFT mode is the
+    same fused product as the DCT's with another operator."""
+    j = np.arange(n, dtype=np.float64)
+    f = np.exp(-2j * np.pi * np.outer(j, j) / n)
+    m2 = np.real(np.kron(f, f))
+    return m2[zigzag_permutation(n), :]
+
+
+@functools.lru_cache(maxsize=None)
+def dft_decode_operator(n: int) -> np.ndarray:
+    """(d*d, d*d) real operator ``W`` with ``vec(re(ifft2)) = W @ coeffs_zz``
+    (G = conj(F)/n per axis)."""
+    j = np.arange(n, dtype=np.float64)
+    g = np.exp(2j * np.pi * np.outer(j, j) / n) / n
+    w2 = np.real(np.kron(g, g))
+    return w2[:, zigzag_permutation(n)]
+
+
+@functools.lru_cache(maxsize=None)
+def dct_matrix_normalized(n: int) -> np.ndarray:
+    """Row-normalized DCT matrix.
+
+    Per-row scalar norms, not an axis reduction: the two differ by 1 ULP
+    (BLAS dot vs add.reduce), and this matrix is part of the bit-parity
+    surface."""
+    a = dct_matrix(n).copy()
+    for k in range(n):
+        a[k] /= np.linalg.norm(a[k])
+    return a
+
+
+@functools.lru_cache(maxsize=None)
+def normalization_matrix(n: int) -> np.ndarray:
+    """diag(1/row_norm)."""
+    return np.diag(1.0 / np.linalg.norm(dct_matrix(n), axis=1))
+
+
+# ---------------------------------------------------------------------------
+# Parity-exact transforms (the f64 parity mode only).
+#
+# Rounded raw coefficients are not ULP-robust: for d=8 the k=4 DCT row is
+# +-cos(pi/4), so products make coefficients that are exact half-integers,
+# and which side of the .5 boundary the computed f64 value lands on depends
+# on the accumulation order.  A matmul (any matmul, batched or not) cannot
+# reproduce the reference's np.round results bitwise.  The parity mode
+# instead evaluates the transform on the host with the reference's exact
+# expression tree: per-row 1-D BLAS dots, two passes, one block at a time.
+# The loops are deliberate; the f32 path never uses these.
+# ---------------------------------------------------------------------------
+
+def _ref_matrices(n: int):
+    a = dct_matrix(n)
+    # Row-normalized matrix: per-row scalar norms.
+    a_norm = a.copy()
+    for k in range(n):
+        a_norm[k] = a_norm[k] / np.linalg.norm(a_norm[k])
+    # Diagonal inverse-norm matrix built from the axis-norm.
+    dinv = np.diag(1.0 / np.linalg.norm(a, axis=1))
+    return a, a_norm.T, dinv
+
+
+def _host_dct2(blocks: np.ndarray, n: int) -> np.ndarray:
+    """(..., n, n) -> (..., n, n) forward DCT, reference evaluation order."""
+    a, _, _ = _ref_matrices(n)
+    flat = np.ascontiguousarray(blocks, dtype=np.float64).reshape(-1, n, n)
+    out = np.empty_like(flat)
+    for b in range(flat.shape[0]):
+        m = np.zeros((n, n))
+        for i in range(n):
+            m[i] = a.dot(flat[b][i])          # row pass
+        mt = m.T
+        r = np.zeros((n, n))
+        for i in range(n):
+            r[i] = a.dot(mt[i])               # column pass
+        out[b] = r.T
+    return out.reshape(blocks.shape)
+
+
+def _host_idct2(coeffs: np.ndarray, n: int) -> np.ndarray:
+    """Inverse DCT, reference evaluation order."""
+    _, w, dinv = _ref_matrices(n)
+    flat = np.ascontiguousarray(coeffs, dtype=np.float64).reshape(-1, n, n)
+    out = np.empty_like(flat)
+    for b in range(flat.shape[0]):
+        at = flat[b].T
+        m = np.zeros((n, n))
+        for i in range(n):
+            m[i] = w.dot(dinv.dot(at[i]))     # column pass first
+        m = m.T
+        r = np.zeros((n, n))
+        for i in range(n):
+            r[i] = w.dot(dinv.dot(m[i]))      # then row pass
+        out[b] = r
+    return out.reshape(coeffs.shape)
+
+
+def _host_fft2_real(blocks: np.ndarray, n: int) -> np.ndarray:
+    flat = np.ascontiguousarray(blocks, dtype=np.float64).reshape(-1, n, n)
+    out = np.empty_like(flat)
+    for b in range(flat.shape[0]):            # per block, as the reference
+        out[b] = np.fft.fft2(flat[b]).real
+    return out.reshape(blocks.shape)
+
+
+def _host_ifft2_real(coeffs: np.ndarray, n: int) -> np.ndarray:
+    flat = np.ascontiguousarray(coeffs, dtype=np.float64).reshape(-1, n, n)
+    out = np.empty_like(flat)
+    for b in range(flat.shape[0]):
+        out[b] = np.fft.ifft2(flat[b]).real
+    return out.reshape(coeffs.shape)
+
+
+def exact_dct2_zigzag(blocks: np.ndarray, n: int) -> np.ndarray:
+    """Parity-mode fused DCT+zigzag: (..., d, d) blocks -> (..., d*d)."""
+    coeffs = _host_dct2(blocks, n)
+    flat = coeffs.reshape(coeffs.shape[:-2] + (n * n,))
+    return np.take(flat, zigzag_permutation(n), axis=-1)
+
+
+def exact_izigzag_idct2(coeffs_zz: np.ndarray, n: int) -> np.ndarray:
+    """Parity-mode dezigzag + inverse DCT: (..., d*d) -> (..., d*d)."""
+    flat = np.take(coeffs_zz, inverse_zigzag_permutation(n), axis=-1)
+    blocks = flat.reshape(flat.shape[:-1] + (n, n))
+    return _host_idct2(blocks, n).reshape(coeffs_zz.shape)
+
+
+def exact_dft2_real_zigzag(blocks: np.ndarray, n: int) -> np.ndarray:
+    """Parity-mode real(fft2) + zigzag: (..., d, d) blocks -> (..., d*d)."""
+    coeffs = _host_fft2_real(blocks, n)
+    flat = coeffs.reshape(coeffs.shape[:-2] + (n * n,))
+    return np.take(flat, zigzag_permutation(n), axis=-1)
+
+
+def exact_izigzag_idft2_real(coeffs_zz: np.ndarray, n: int) -> np.ndarray:
+    """Parity-mode dezigzag + real(ifft2): (..., d*d) -> (..., d, d)."""
+    flat = np.take(coeffs_zz, inverse_zigzag_permutation(n), axis=-1)
+    blocks = flat.reshape(flat.shape[:-1] + (n, n))
+    return _host_ifft2_real(blocks, n)

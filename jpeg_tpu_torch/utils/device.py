@@ -27,6 +27,19 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def resolve_dtype(dtype) -> torch.dtype:
+    """The ``dtype`` argument of the public API: ``None`` or
+    ``torch.float32`` for the f32 path, ``torch.float64`` for the f64
+    parity mode (bit parity with the reference; its transforms loop over
+    blocks on the host, so it is for small images)."""
+    if dtype is None:
+        return torch.float32
+    if dtype in (torch.float32, torch.float64):
+        return dtype
+    raise ValueError(f"dtype must be None, torch.float32 or torch.float64, "
+                     f"got {dtype!r}")
+
+
 def caller_stream(dev: torch.device):
     """A context-manager factory that makes the calling thread's current
     CUDA stream current in another thread.

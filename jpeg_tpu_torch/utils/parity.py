@@ -2,12 +2,13 @@
 
 The f32 path evaluates the same linear maps through several evaluation
 orders — XLA's and cuBLAS's blocked matmuls, the TPU kernels' packed
-panels, the port's tiled decode kernel (csrc/decode_blocks.cu), the
+panels, the port's tiled product kernels (csrc/tiled_product.cuh), the
 separable two-stage contraction (ops/band.py) — and ``round()`` sits right
 after each.  Where the EXACT (f64) pre-round value is an exact half-integer
-(the unnormalized DCT's cos(pi/4) rows make these common), the computed
-f32 value lands an ULP above or below the tie depending on accumulation
-order, and the rounded integers legitimately differ by 1.
+(the unnormalized DCT's cos(pi/4) rows and the DFT's dyadic-rational
+operator entries make these common), the computed f32 value lands an ULP
+above or below the tie depending on accumulation order, and the rounded
+integers legitimately differ by 1.
 
 So the honest cross-path contract, asserted by :func:`assert_tie_equal`:
 
@@ -15,16 +16,20 @@ So the honest cross-path contract, asserted by :func:`assert_tie_equal`:
     pre-round value lies within the f32 accumulation error bound of an
     exact .5 tie — there they may differ by exactly 1.
 
-This module is the same pure-NumPy contract as ``jpeg_tpu/utils/parity.py``
-(the JAX package's f64 parity mode is exempt from it, and is not ported
-yet).  It provides the f64 references and tie masks for both directions,
-so the port can be held to the contract on the GPU, where ``jpeg_tpu``
-cannot be imported.  This slice covers the DCT transform.
+This module is the same pure-NumPy contract as ``jpeg_tpu/utils/parity.py``.
+The f64 parity mode (``dtype=torch.float64``) is exempt from it: it
+reproduces the reference bitwise through the reference-order host
+transforms (``ops/transform.py`` ``exact_*``).  It provides the f64
+references and tie masks for both directions and both transforms, so the
+port can be held to the contract on the GPU, where ``jpeg_tpu`` cannot be
+imported.
 
-Scope note: quantizers with a non-integer ``divide`` divisor add a
-``trunc`` boundary on decode that this mask does not model; the decode
-kernel excludes them (``ops/quantize.py:dequant_int_vector`` returns None),
-so the contract applies to the paths that can actually disagree.
+Scope note: a non-integer ``divide`` divisor restores by ``trunc``, a
+boundary this mask does not model.  The f64 reference truncates the f64
+product; the f32 decode truncates ``f32(level) * f32(divisor)``.  The two
+agree where that f32 product is exact (a divisor such as 2.5), and there
+the contract holds; for other divisors (2.3) compare with another f32 path
+instead.
 """
 from __future__ import annotations
 
@@ -79,11 +84,19 @@ def encode_reference_and_ties(cfg: Configuration, band):
     a = _pad_edge_np(a, d)
     nv, nh = a.shape[0] // d, a.shape[1] // d
     vec = a.reshape(nv, d, nh, d).transpose(0, 2, 1, 3).reshape(nv * nh, L)
-    if cfg.transform != "DCT":
-        raise NotImplementedError(
-            f"transform {cfg.transform!r}: only DCT is ported")
-    enc = T.encode_operator(d)
-    mul, div, mask = Q.epilogue_vectors(cfg.quantization, d)
+    enc = (T.encode_operator(d) if cfg.transform == "DCT"
+           else T.dft_encode_operator(d))
+    return blocks_reference_and_ties(
+        vec, enc, *Q.epilogue_vectors(cfg.quantization, d))
+
+
+def blocks_reference_and_ties(vec, enc, mul, div, mask):
+    """:func:`encode_reference_and_ties` for (N, L) pixel blocks ``vec``
+    already subsampled and padded, the (L, L) operator ``enc`` and the
+    quantizer's epilogue vectors: the contract of the block product
+    ``round((vec @ enc.T) * mul / div) * mask`` (kernel K5's)."""
+    L = enc.shape[0]
+    vec = np.asarray(vec, np.float64)
     q = (vec @ enc.T) * mul / div
     levels_ref = (np.round(q) * mask).astype(np.int32)
     # |computed_f32 - exact| <= ~(contraction length) * eps * sum|terms|;

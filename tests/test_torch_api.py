@@ -112,10 +112,28 @@ def test_golden_decode_matches_jax_f32_except_ties(name):
 
 
 def test_dft_golden_decode_is_not_ported_yet():
+    """The DFT golden (bs 3, padded) decodes to the manifest's plane hash in
+    the parity mode, and within the tie contract of ``jpeg_tpu``'s f32
+    decode in f32."""
+    import hashlib
+    import json
     with open(os.path.join(GOLDEN, "dft_none.jc"), "rb") as f:
         blob = f.read()
-    with pytest.raises(NotImplementedError, match="DFT"):
-        jpeg_tpu_torch.decompress_to_ycbcr(blob, device="cpu")
+    with open(os.path.join(GOLDEN, "manifest.json")) as f:
+        entry = json.load(f)["dft_none"]
+    rec64 = jpeg_tpu_torch.decompress_to_ycbcr(blob, device="cpu",
+                                               dtype=torch.float64)
+    assert list(rec64.shape) == entry["decoded_shape"]
+    assert hashlib.sha256(rec64.tobytes()).hexdigest() == \
+        entry["decoded_sha256"]
+    rec = jpeg_tpu_torch.decompress_to_ycbcr(blob, device="cpu")
+    want = jpeg_tpu.decompress_to_ycbcr(blob, dtype=np.float32)
+    jcfg, data = jcontainer.read_data(blob)
+    for b, s in enumerate((data.y, data.cb, data.cr)):
+        lv = jentropy.decode_levels(s, jcfg.num_blocks, 64)
+        _, ties = jparity.decode_reference_and_ties(jcfg, lv)
+        jparity.assert_tie_equal(rec[:, :, b], want[:, :, b], ties,
+                                 f"dft band {b}")
 
 
 def test_amplitude_check_runs_before_encode():

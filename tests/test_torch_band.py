@@ -82,10 +82,24 @@ def test_quantizer_vectors_bitwise_equal(qname, qparams):
 
 
 def test_divide_float_divisor_has_no_int_vector():
+    """A non-integer divisor restores by truncation, so it has no integer
+    dequantizer for K4: BandDecoder takes the plain truncating branch, equal
+    to ``make_decode(key, "float32", False)`` (2.5 makes every product
+    exact in f32 and f64, so the two are bitwise equal)."""
     m = QuantizationMethod("divide", divisor=2.5)
     assert Q.dequant_int_vector(m, 8) is None
-    with pytest.raises(NotImplementedError, match="divisor"):
-        BandDecoder(Configuration(width=16, height=16, quantization=m))
+    for h, w in ((32, 48), (23, 37)):
+        tcfg, jcfg = _cfgs(h, w, 2, 8, "divide", {"divisor": 2.5})
+        rng = np.random.default_rng(h)
+        lv = np.where(rng.random((tcfg.num_blocks, 64)) < 0.3,
+                      rng.integers(-40, 41, (tcfg.num_blocks, 64)), 0)
+        lv = lv.astype(np.int32)
+        dec = BandDecoder(tcfg)
+        assert dec.branch == ("combined" if h == 32 else "chain")
+        got = dec(torch.from_numpy(lv)[None])[0].numpy()
+        want = np.asarray(jband.make_decode(jband.config_key(jcfg), "float32",
+                                            False)(jnp.asarray(lv)))
+        np.testing.assert_array_equal(got, want)
 
 
 ENC_CASES = [  # (h, w, bs, d, quantizer index)
@@ -159,11 +173,25 @@ def test_modules_hold_operators_as_buffers():
 
 
 def test_unported_branches_raise():
-    padded, _ = _cfgs(23, 37, 4, 8, "qtable", {})
-    with pytest.raises(NotImplementedError, match="padding"):
-        BandEncoder(padded)
-    dft = Configuration(width=32, height=16, block_size=2, transform="DFT")
-    with pytest.raises(NotImplementedError, match="DFT"):
-        BandEncoder(dft)
-    with pytest.raises(NotImplementedError, match="DFT"):
-        BandDecoder(dft)
+    """The branches the port now has beside the divisible DCT encode:
+    padded DCT (``sep_pad``), divisible DFT (``combined``) and padded DFT
+    (``blocks``, kernel K5) encode within the tie contract of ``jpeg_tpu``'s
+    f32 ``make_encode`` and of the f64 reference."""
+    for h, w, bs, transform, branch in ((23, 37, 4, "DCT", "sep_pad"),
+                                        (32, 48, 2, "DFT", "combined"),
+                                        (23, 37, 3, "DFT", "blocks")):
+        tcfg = Configuration(width=w, height=h, block_size=bs,
+                             transform=transform,
+                             quantization=QuantizationMethod("qtable"))
+        jcfg = JConfiguration(width=w, height=h, block_size=bs,
+                              transform=transform,
+                              quantization=JQuantizationMethod("qtable"))
+        band = _band(h, w, bs)
+        enc = BandEncoder(tcfg)
+        assert enc.branch == branch
+        got = enc(torch.from_numpy(band)[None])[0].numpy()
+        want = np.asarray(jband.make_encode(jband.config_key(jcfg), "float32",
+                                            False)(jnp.asarray(band)))
+        ref, ties = jparity.encode_reference_and_ties(jcfg, band)
+        jparity.assert_tie_equal(got, want, ties, branch)
+        jparity.assert_tie_equal(got, ref, ties, f"f64 {branch}")

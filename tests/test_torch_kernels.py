@@ -230,7 +230,8 @@ def test_wrappers_check_inputs_and_never_fall_back():
     assert K.launch_counts() == before      # the plain version launches nothing
     assert set(before) == {"encode_stream_rows", "deposit_rows",
                            "decode_stream_blocks", "decode_blocks",
-                           "scan_walk", "chase_starts", "chase_starts_multi"}
+                           "encode_blocks", "scan_walk", "chase_starts",
+                           "chase_starts_multi"}
     with pytest.raises(ValueError, match="n_bytes"):
         K.scan_walk(torch.zeros(4, dtype=torch.uint8), 5, 64)
     with pytest.raises(ValueError, match="int32"):
@@ -254,4 +255,4 @@ def test_kernel_build_is_keyed_by_source_hash():
         K.NVCC_FLAGS
     assert [os.path.basename(p) for p in K._sources()] == [
         "chase.cu", "compact.cu", "decode_blocks.cu", "decode_stream.cu",
-        "encode_stream.cu", "scan_walk.cu"]
+        "encode_blocks.cu", "encode_stream.cu", "scan_walk.cu"]
