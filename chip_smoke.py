@@ -11,12 +11,14 @@ result):
 
 1. Require a CUDA device; print ``nvidia-smi``'s card name and power limit
    and the torch / CUDA versions.
-2. Build the eight CUDA kernels from ``jpeg_tpu_torch/csrc`` with ``nvcc``
+2. Build the ten CUDA kernels from ``jpeg_tpu_torch/csrc`` with ``nvcc``
    (into ``build/cuda/``) and print the build time and ptxas' resource use.
 3. Hold each kernel against its plain PyTorch version on the card at the
    main path's shapes (2048x2048 image: N = 49,152 blocks, L = 64), on the
-   image's own levels and on adversarial random levels: K1-K3 must be
-   bit-equal, K4 equal except +-1 at provable ties (``utils/parity.py``).
+   image's own levels and on adversarial random levels: K1-K3 and K9 (the
+   tables encoder, on ``_unit_groups``' tables) must be bit-equal, K9's
+   rows also to K1's, K4 equal except +-1 at provable ties
+   (``utils/parity.py``).
    K5 runs on the image's pixel blocks with the DFT operator, at d = 8
    (N = 196,608: the three bands at bs 1; four quantizers) and at d = 24
    (N = 2,700, L = 576): equal to its plain version and to an f64 numpy
@@ -24,9 +26,12 @@ result):
    The boundary-scan kernels K6-K8 run on the image's three-band stream,
    the adversarial levels' stream, 24 single-byte mutations of the image
    stream and pure garbage bytes: the end table, the starts and the checks
-   must be bit-equal to the plain versions', the starts must be the host
-   C++ scanner's wherever it accepts every band, and a truncated middle
-   band must fail the check.
+   must be bit-equal to the plain versions', the two-sweep end table
+   (``end_table(cap=12)``: K6' twice) bit-equal to the single sweep's, the
+   starts must be the host C++ scanner's wherever it accepts every band,
+   and a truncated middle band must fail the check.  K6' (the capped and
+   resumed walkers) is held against its plain version on every byte of the
+   image stream at caps 4 and 12, every live walker resumed.
 4. Drive the main path, ``compress_ycbcr`` -> ``decompress_to_ycbcr``
    (host C++ boundary scan), at 2048x2048 and 3840x2160 (qtable, DCT,
    dct_size 8, block_size 2) with every kernel's launch count reset just
@@ -61,14 +66,34 @@ result):
    (``dtype=torch.float64``): encoding the golden images must reproduce
    the six ``tests/golden/*.jc`` blobs byte for byte, and decoding them
    (both scans) the manifest's plane hashes.
+   Phase 4e drives the other paths, counts reset just before and read just
+   after each: ``compress_ycbcr(enc="tables")`` at both main-path sizes
+   (containers byte-equal to ``enc="lv"``'s, K9 launched once and K1 never
+   per image), ``compress_many(enc="tables")`` (equal to its per-image
+   results), ``enc="tables"`` at d = 24 (must raise ``ValueError``); the
+   two-sweep end table ``end_table(cap=12)`` on both main-path streams
+   (bit-equal to the single sweep, K6' launched twice each); and the step
+   pipeline on the card on the 2048x2048 Y band at the main configuration
+   (``compress_band_steps`` / ``decompress_band_steps``: f64 bytes equal
+   to ``compress_band``'s, f32 levels and planes within the tie contract
+   of ``compress_band`` / ``decompress_band``), and the f64 steps on a
+   golden configuration (its Y band bytes).
 5. Time encode and decode (host array -> host bytes -> host array) with
    CUDA events, median of 7 after a warm-up, decode with either scan; the
    host-free decode stage by stage; each kernel against its plain version; the pure-Python scanner, the C++
    scanner and the device scan at stream sizes from 256 bytes to 256 KB
    (where the device scan overtakes the pure-Python one); and
    ``compress_many`` / ``decompress_many`` at depth 2 over 8 images of
-   2048x2048; K5 and its plain version (mean of 50 launches); and encode
-   and decode of BASELINE configurations (2), (3), (4a) and (4b).
+   2048x2048; K5, K9 and their plain versions (mean of 50 launches) and
+   ``_unit_groups``; encode and decode of BASELINE configurations (2), (3),
+   (4a) and (4b); encode with ``enc="tables"`` against ``"lv"``, in turns;
+   the two-sweep end table at caps 8, 12 and 20 against the single sweep
+   on both main-path streams, and the device kernels of one call of each
+   end table and each ``encode_rows`` (torch.profiler); and the step
+   pipeline's band round trip against ``compress_band`` /
+   ``decompress_band``.  Each kernel's line
+   in the JSON carries its bound: the larger of its bytes over the card's
+   memory rate and its f32 operations over its f32 rate.
 
 The last three lines of standard output are a JSON object of per-kernel
 results, the card's ``name, power.limit`` and
@@ -94,6 +119,8 @@ PSNR_MIN_DB = 30.0
 KERNEL_INFO = {   # wrapper name -> (source, Pallas kernel it replaces)
     "encode_stream_rows": ("jpeg_tpu_torch/csrc/encode_stream.cu",
                            "jpeg_tpu/ops/pallas_kernels.py:393"),
+    "encode_stream_rows_tables": ("jpeg_tpu_torch/csrc/encode_tables.cu",
+                                  "jpeg_tpu/ops/pallas_kernels.py:311"),
     "deposit_rows": ("jpeg_tpu_torch/csrc/compact.cu",
                      "jpeg_tpu/ops/pallas_kernels.py:607"),
     "decode_stream_blocks": ("jpeg_tpu_torch/csrc/decode_stream.cu",
@@ -104,6 +131,8 @@ KERNEL_INFO = {   # wrapper name -> (source, Pallas kernel it replaces)
                       "jpeg_tpu/ops/pallas_kernels.py:63"),
     "scan_walk": ("jpeg_tpu_torch/csrc/scan_walk.cu",
                   "jpeg_tpu/ops/pallas_kernels.py:857"),
+    "scan_walk_resume": ("jpeg_tpu_torch/csrc/scan_walk.cu",
+                         "jpeg_tpu/ops/pallas_kernels.py:751"),
     "chase_starts": ("jpeg_tpu_torch/csrc/chase.cu",
                      "jpeg_tpu/ops/pallas_kernels.py:944"),
     "chase_starts_multi": ("jpeg_tpu_torch/csrc/chase.cu",
@@ -112,6 +141,13 @@ KERNEL_INFO = {   # wrapper name -> (source, Pallas kernel it replaces)
 MAIN_PATH = ("encode_stream_rows", "deposit_rows", "decode_stream_blocks",
              "decode_blocks")
 HOST_FREE_PATH = ("scan_walk", "chase_starts", "chase_starts_multi")
+TABLES_PATH = ("encode_stream_rows_tables", "deposit_rows")
+TWO_SWEEP_CAPS = (8, 12, 20)
+# The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): the
+# bound of a kernel is the larger of its bytes over the memory rate and its
+# f32 operations over the f32 (non-tensor-core) rate.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
 MUTANTS = 24
 CROSSOVER_BYTES = (256, 1 << 10, 4 << 10, 16 << 10, 64 << 10, 256 << 10)
 MANY = 8
@@ -222,6 +258,38 @@ def median_host_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
+def device_kernels(fn, top: int = 6) -> str:
+    """The device kernels one call of ``fn`` runs, from torch.profiler's
+    CUDA events (not its ``key_averages()``, which counts device time twice):
+    their number, their summed time and the ``top`` longest by name."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    agg = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            us, n = agg.get(ev.name, (0.0, 0))
+            agg[ev.name] = (us + ev.time_range.elapsed_us(), n + 1)
+    total = sum(us for us, _ in agg.values())
+    count = sum(n for _, n in agg.values())
+    head = sorted(agg.items(), key=lambda kv: -kv[1][0])[:top]
+    return (f"{count} kernels, {total:.1f} us on the device: " + "; ".join(
+        f"{name[:48]} x{n} {us:.1f} us" for name, (us, n) in head))
+
+
+def bound(nbytes: float, flops: float = 0.0):
+    """(ms, side): the least time the card could take to move ``nbytes``
+    (each input read once, each output written once) and do ``flops`` f32
+    operations, and which of the two sets it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def max_diff(a, b) -> int:
     """Largest elementwise |a - b| of two integer tensors, as an int."""
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
@@ -299,13 +367,22 @@ def main() -> int:
     log(f"  levels: {tuple(flat.shape)} from a {h}x{w} image")
 
     def entropy_kernels(label, lv):
-        """K1-K3 vs their plain versions (bit-equal) and the host codec;
-        returns the timing closures on these inputs."""
+        """K1-K3 and K9 vs their plain versions (bit-equal) and the host
+        codec, K9's rows also vs K1's; returns the timing closures on these
+        inputs."""
         W = -(-int(DC.block_bytes_of(lv).max()) // 4)
         rows_k, bb_k = K.encode_stream_rows(lv, W)
         rows_p, bb_p = K.encode_stream_rows_plain(lv, W)
         check(torch.equal(rows_k, rows_p) and torch.equal(bb_k, bb_p),
               f"K1 {label}: rows and block bytes bit-equal (W={W})")
+        cbits, vhi, vlo, bb_t = DC._unit_groups(lv)
+        rows9_k = K.encode_stream_rows_tables(cbits, vhi, vlo, W)
+        rows9_p = K.encode_stream_rows_tables_plain(cbits, vhi, vlo, W)
+        check(torch.equal(rows9_k, rows9_p) and torch.equal(rows9_k, rows_k)
+              and torch.equal(bb_t, bb_k),
+              f"K9 {label}: rows bit-equal to plain and to K1's, "
+              "_unit_groups' block bytes to K1's")
+        n, L1 = cbits.shape
         total = int(bb_k.to(torch.int64).sum())
         buf_k = K.deposit_rows(rows_k, bb_k, total)
         buf_p = K.deposit_rows_plain(rows_p, bb_p, total)
@@ -323,18 +400,35 @@ def main() -> int:
             "encode_stream_rows": dict(
                 err=max(max_diff(rows_k, rows_p), max_diff(bb_k, bb_p)),
                 fn=lambda: K.encode_stream_rows(lv, W),
-                plain=lambda: K.encode_stream_rows_plain(lv, W)),
+                plain=lambda: K.encode_stream_rows_plain(lv, W),
+                nbytes=4 * n * (L + W + 1)),
+            "encode_stream_rows_tables": dict(
+                err=max_diff(rows9_k, rows9_p),
+                fn=lambda: K.encode_stream_rows_tables(cbits, vhi, vlo, W),
+                plain=lambda: K.encode_stream_rows_tables_plain(
+                    cbits, vhi, vlo, W),
+                plain_reps=50,
+                # cbits in full; vlo only at coded slots and vhi only at
+                # groups past 32 bits (the kernel loads no more); the rows
+                nbytes=4 * (n * L1 + int((cbits > 0).sum())
+                            + int((cbits > 32).sum()) + n * W)),
             "deposit_rows": dict(
                 err=max_diff(buf_k, buf_p),
                 fn=lambda: K.deposit_rows(rows_k, bb_k, total),
-                plain=lambda: K.deposit_rows_plain(rows_k, bb_k, total)),
+                plain=lambda: K.deposit_rows_plain(rows_k, bb_k, total),
+                # the block bytes, then each block's bytes of its row read
+                # and written once (the rows' zero padding is not needed)
+                nbytes=4 * n + 2 * total),
             "decode_stream_blocks": dict(
                 err=max_diff(dec_k, dec_p),
                 fn=lambda: K.decode_stream_blocks(buf_k, starts, L),
-                plain=lambda: K.decode_stream_blocks_plain(buf_k, starts, L)),
+                plain=lambda: K.decode_stream_blocks_plain(buf_k, starts, L),
+                nbytes=total + 8 * n + 4 * n * L),
+            "_unit_groups": dict(fn=lambda: DC._unit_groups(lv)),
         }
 
     img_buf, img_bb, results = entropy_kernels("image", flat)
+    unit_groups_fn = results.pop("_unit_groups")["fn"]
     adv_buf, adv_bb, _ = entropy_kernels(
         "adversarial",
         torch.from_numpy(adversarial_levels(n_blocks, L)).to(dev))
@@ -342,7 +436,7 @@ def main() -> int:
     # Bound again in scan_kernels' own scope for its timing closures:
     # main() reassigns nb in phase 4.
     band_blocks = n_blocks // 3
-    scan_err = dict.fromkeys(HOST_FREE_PATH, 0)
+    scan_err = dict.fromkeys(HOST_FREE_PATH + ("scan_walk_resume",), 0)
 
     def band_ends(bb) -> list:
         return np.cumsum(bb.to(torch.int64).reshape(3, -1).sum(1).cpu()
@@ -363,7 +457,8 @@ def main() -> int:
 
     def scan_kernels(label, buf, ends, quiet=False):
         """K6-K8 vs their plain versions (bit-equal) on one buffer of three
-        bands, and their starts vs the host C++ scanner's.  Returns the
+        bands, the two-sweep end table (K6' at cap 12) vs the single sweep
+        (bit-equal), and the starts vs the host C++ scanner's.  Returns the
         device check and the timing closures on these inputs."""
         n, nb = buf.shape[0], band_blocks
         s0s_l = [0] + ends[:-1]
@@ -371,6 +466,7 @@ def main() -> int:
         s0s = torch.tensor(s0s_l, dtype=torch.int64, device=dev)
         E_k = K.scan_walk(buf, n, L)
         E_p = K.scan_walk_plain(buf, n, L)
+        E_2 = DS.end_table(buf, n, L, cap=12)
         st_k, ok_k = K.chase_starts_multi(E_k, targets, s0s, nb)
         st_p, ok_p = K.chase_starts_multi_plain(E_k, targets, s0s, nb)
         one_k = [K.chase_starts(E_k, t, s0, nb) for t, s0 in zip(ends, s0s_l)]
@@ -378,6 +474,7 @@ def main() -> int:
                  for t, s0 in zip(ends, s0s_l)]
         errs = {
             "scan_walk": max_diff(E_k, E_p),
+            "scan_walk_resume": max_diff(E_2, E_k),
             "chase_starts_multi": max(max_diff(st_k, st_p),
                                       max_diff(ok_k, ok_p)),
             "chase_starts": max(max(max_diff(a, c), max_diff(b, d))
@@ -388,8 +485,9 @@ def main() -> int:
         want = host_starts(buf.cpu().numpy().tobytes(), ends)
         ok = bool(ok_k.all())
         what = (f"K6-K8 {label}: end table, starts and checks bit-equal to "
-                f"plain; check {ok} = host C++ scanner's "
-                f"{want is not None}; starts = host starts")
+                f"plain; two-sweep end table (cap 12) bit-equal; check {ok} "
+                f"= host C++ scanner's {want is not None}; starts = host "
+                "starts")
         good = (not any(errs.values()) and ok == (want is not None)
                 and [bool(o) for _, o in one_k] == ok_k.tolist()
                 and (want is None or np.array_equal(st_k.reshape(-1).cpu()
@@ -399,19 +497,24 @@ def main() -> int:
                 raise AssertionError(what)
         else:
             check(good, what)
+        # The chase reads one entry of E per start and writes the start:
+        # nb of each (a serial chain, which this count does not show).
         return ok, {
             "scan_walk": dict(
                 err=errs["scan_walk"], fn=lambda: K.scan_walk(buf, n, L),
-                plain=lambda: K.scan_walk_plain(buf, n, L)),
+                plain=lambda: K.scan_walk_plain(buf, n, L),
+                nbytes=n + 4 * (n + 2)),
             "chase_starts": dict(
                 err=errs["chase_starts"],
                 fn=lambda: K.chase_starts(E_k, ends[0], 0, nb),
-                plain=lambda: K.chase_starts_plain(E_k, ends[0], 0, nb)),
+                plain=lambda: K.chase_starts_plain(E_k, ends[0], 0, nb),
+                nbytes=12 * nb + 1),
             "chase_starts_multi": dict(
                 err=errs["chase_starts_multi"],
                 fn=lambda: K.chase_starts_multi(E_k, targets, s0s, nb),
                 plain=lambda: K.chase_starts_multi_plain(E_k, targets, s0s,
-                                                         nb)),
+                                                         nb),
+                nbytes=len(ends) * (12 * nb + 1)),
         }
 
     img_ends = band_ends(img_bb)
@@ -447,6 +550,48 @@ def main() -> int:
     check(not ok and not bool(ok_api), "truncated middle band: check fails")
     results.update(scan_results)
 
+    def resume_kernels(buf, n_b):
+        """K6' vs its plain version (bit-equal) on every byte of a stream at
+        caps 4 and 12, then every walker live at the cap resumed from its
+        carried state, kernel and plain alike: the single sweep's table."""
+        q = torch.arange(n_b, dtype=torch.int64, device=dev)
+        E1 = K.scan_walk(buf, n_b, L)
+        budget = K._walk_units(L)
+        err = 0
+        for cap in (4, 12):
+            got = K.scan_walk_resume(buf, n_b, L, q, cap)
+            ones = torch.ones((), dtype=torch.int64, device=dev)
+            plain = K.scan_walk_resume_plain(
+                buf, n_b, L, q, cap, *(torch.zeros_like(q, dtype=torch.int32)
+                                       for _ in range(2)), ones * n_b)
+            err = max(err, *(max_diff(g, p) for g, p in zip(got, plain)))
+            live = got[0] == -2
+            ql, cl, wl = q[live], got[1][live], got[2][live]
+            res = K.scan_walk_resume(buf, n_b, L, ql, budget - cap, cl, wl)
+            res_p = K.scan_walk_resume_plain(buf, n_b, L, ql, budget - cap,
+                                             cl, wl, ones * ql.shape[0])
+            err = max(err, *(max_diff(g, p) for g, p in zip(res, res_p)))
+            length = got[0].clone()
+            length[live] = res[0]
+            E = torch.where(length >= 0, q + length, n_b + 1)
+            check(err == 0 and torch.equal(E.to(torch.int32), E1[:n_b]),
+                  f"K6' at cap {cap} on the {n_b}-byte stream: lengths, bits "
+                  f"and indices bit-equal to plain; {int(live.sum())} "
+                  "walkers resumed, kernel and plain alike; the single "
+                  "sweep's end table")
+        return err, {"scan_walk_resume": dict(
+            fn=lambda: K.scan_walk_resume(buf, n_b, L, q, 12),
+            plain=lambda: K.scan_walk_resume_plain(
+                buf, n_b, L, q, 12, *(torch.zeros_like(q, dtype=torch.int32)
+                                      for _ in range(2)),
+                torch.full((), n_b, dtype=torch.int64, device=dev)),
+            nbytes=n_b + 8 * n_b + 12 * n_b,
+            shape=f"{n_b} walkers, cap 12, stream {n_b} bytes")}
+
+    err_r, resume_results = resume_kernels(img_buf, img_ends[-1])
+    scan_err["scan_walk_resume"] = max(scan_err["scan_walk_resume"], err_r)
+    results.update(resume_results)
+
     dec = BandDecoder(cfg).to(dev)
     pix_k = K.decode_blocks(flat, dec.op_t, dec.deq)
     pix_p = K.decode_blocks_plain(flat, dec.op_t, dec.deq)
@@ -467,9 +612,12 @@ def main() -> int:
     check(True, f"K4: equal to plain and to the f64 reference except +-1 at "
           f"ties (max |diff| vs plain {k4_err}, "
           f"{int((got != want_p).sum())} tie flips)")
+    M4 = dec.op_t.shape[1]
     results["decode_blocks"] = dict(
         err=k4_err, fn=lambda: K.decode_blocks(flat, dec.op_t, dec.deq),
-        plain=lambda: K.decode_blocks_plain(flat, dec.op_t, dec.deq))
+        plain=lambda: K.decode_blocks_plain(flat, dec.op_t, dec.deq),
+        nbytes=4 * n_blocks * L + n_blocks * M4 + 4 * dec.op_t.numel()
+        + 4 * dec.deq.numel(), flops=2 * n_blocks * L * M4)
 
     def k5_closures(vec, op_t, vecs):
         return (lambda: K.encode_blocks(vec, op_t, *vecs),
@@ -500,10 +648,13 @@ def main() -> int:
                   f"{int(ties.sum())} tie positions)")
             if d5 == 8 and qname == "none":
                 fn, plain_fn = k5_closures(vec, op_t, vecs)
-                results["encode_blocks"] = dict(fn=fn, plain=plain_fn,
-                                                plain_reps=50, shape=(
-                                                    f"N={vec.shape[0]}, "
-                                                    f"L={d5 * d5}"))
+                N5, L5 = vec.shape
+                results["encode_blocks"] = dict(
+                    fn=fn, plain=plain_fn, plain_reps=50,
+                    shape=f"N={N5}, L={L5}",
+                    nbytes=8 * N5 * L5 + 4 * op_t.numel()
+                    + 4 * sum(v.numel() for v in vecs),
+                    flops=2 * N5 * L5 * L5)
     results["encode_blocks"]["err"] = k5_err
 
     log("== phase 4: main path (compress_ycbcr -> decompress_to_ycbcr)")
@@ -727,6 +878,96 @@ def main() -> int:
               "its decode (both scans) the recorded plane hash")
     log(f"  launch counts over the parity run: {K.launch_counts()}")
 
+    log("== phase 4e: the tables encode, the two-sweep end table and the "
+        "step pipeline")
+    K.reset_launch_counts()
+    tables_blobs = {hw: compress_ycbcr(images[hw], cfg_for(*hw), enc="tables")
+                    for hw in sizes}
+    counts_tb = K.launch_counts()
+    log(f"  launch counts over the tables run: {counts_tb}")
+    check(counts_tb["encode_stream_rows_tables"] == len(sizes)
+          and counts_tb["encode_stream_rows"] == 0
+          and all(counts_tb[n] > 0 for n in TABLES_PATH),
+          f"enc='tables' launched K9 once per image and K1 never "
+          f"({len(sizes)} images)")
+    for hw, blob in tables_blobs.items():
+        check(blob == runs[hw][0], f"{hw[0]}x{hw[1]}: the enc='tables' "
+              "container is byte-equal to enc='lv''s")
+    for hw in sizes:
+        batch3 = [images[hw], np.roll(images[hw], 64, 1), images[hw]]
+        check(compress_many(batch3, cfg_for(*hw), enc="tables")
+              == [compress_ycbcr(x, cfg_for(*hw), enc="tables")
+                  for x in batch3] == many_blobs[hw],
+              f"{hw[0]}x{hw[1]}: compress_many(enc='tables') equals its "
+              "per-image results and the lv containers")
+    cfg24, im24, _ = baseline_runs[("3", *SIZES[0])]
+    try:
+        compress_ycbcr(im24, cfg24, enc="tables")
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    check(raised is not None and "L=576" in raised,
+          f"enc='tables' at d = 24 raises ValueError ({raised})")
+
+    main_streams = {}
+    for hw, (blob, _) in runs.items():
+        _, data = container.read_data(blob)
+        raw = b"".join((data.y, data.cb, data.cr))
+        main_streams[hw] = (DC.upload_stream(raw, dev), len(raw))
+    single = {hw: DS.end_table(s, n, L) for hw, (s, n) in main_streams.items()}
+    K.reset_launch_counts()
+    two = {hw: DS.end_table(s, n, L, cap=12)
+           for hw, (s, n) in main_streams.items()}
+    counts_2s = K.launch_counts()
+    log(f"  launch counts over the two-sweep run: {counts_2s}")
+    check(all(torch.equal(two[hw], single[hw]) for hw in sizes)
+          and counts_2s["scan_walk_resume"] == 2 * len(sizes)
+          and counts_2s["scan_walk"] == 0,
+          "end_table(cap=12) on both main-path streams: bit-equal to the "
+          "single sweep, K6' launched twice per stream and K6 never")
+
+    from jpeg_tpu_torch import compress_band, decompress_band, steps
+    h, w = SIZES[0]
+    cfg = cfg_for(h, w)
+    band_y = images[SIZES[0]][:, :, 0]
+    steps_f64 = steps.compress_band_steps(band_y, cfg, dtype=torch.float64)
+    check(steps_f64 == compress_band(band_y, cfg, dtype=torch.float64),
+          f"f64 steps on the card, {h}x{w} Y band: bytes equal "
+          "compress_band's (f64)")
+    steps_f32 = steps.compress_band_steps(band_y, cfg)
+    band_f32 = compress_band(band_y, cfg)
+    nb, Lb = cfg.num_blocks, cfg.dct_size ** 2
+    lv_s = native_codec.decode_levels(steps_f32, nb, Lb)
+    lv_b = native_codec.decode_levels(band_f32, nb, Lb)
+    ref, ties = parity.encode_reference_and_ties(cfg, band_y)
+    parity.assert_tie_equal(lv_s, ref, ties, "f32 steps levels vs f64")
+    parity.assert_tie_equal(lv_s, lv_b, ties, "f32 steps levels vs band")
+    check(True, f"f32 steps on the card: levels equal compress_band's "
+          f"except +-1 at ties ({int((lv_s != lv_b).sum())} flips; bytes "
+          f"{'equal' if steps_f32 == band_f32 else 'differ at those ties'})")
+    plane_s = steps.decompress_band_steps(band_f32, cfg)
+    plane_b = decompress_band(band_f32, cfg)
+    _, pties = parity.decode_reference_and_ties(cfg, lv_b)
+    parity.assert_tie_equal(plane_s, plane_b, pties, "f32 steps plane")
+    plane_64 = steps.decompress_band_steps(steps_f64, cfg,
+                                           dtype=torch.float64)
+    check(np.array_equal(plane_64, decompress_band(steps_f64, cfg,
+                                                   dtype=torch.float64)),
+          f"decompress_band_steps on the card: f32 plane equals "
+          f"decompress_band's except +-1 at ties "
+          f"({int((plane_s != plane_b).sum())} flips), f64 plane equal")
+    for gname, entry in sorted(manifest.items()):
+        kw = dict(entry["config"])
+        q = kw.pop("quantization", None)
+        gcfg = Configuration(**kw, quantization=QuantizationMethod(
+            q["name"], **q["params"]) if q else None)
+        with open(os.path.join(gdir, f"{gname}.jc"), "rb") as f:
+            _, gdata = container.read_data(f.read())
+        gimg = golden_image(gcfg.height, gcfg.width)
+        check(steps.compress_band_steps(gimg[:, :, 0], gcfg,
+                                        dtype=torch.float64) == gdata.y,
+              f"f64 steps on the card: {gname}'s Y band bytes")
+
     log(f"== phase 5: timing (CUDA events; {card})")
     for (h, w), (blob, _) in runs.items():
         cfg = cfg_for(h, w)
@@ -790,22 +1031,37 @@ def main() -> int:
             + f"; sum {sum(stages.values()):.3f} ms, unfenced call "
             f"{total:.3f} ms  [{card}]")
 
+    # Launches on the run of the path each kernel belongs to (counts reset
+    # just before it): the main path, the host-free path, the BASELINE (4b)
+    # runs, the tables run and the two-sweep run.
+    launches_of = dict(counts)
+    launches_of.update({n: counts_hf[n] for n in HOST_FREE_PATH})
+    launches_of["encode_blocks"] = k5_launches
+    launches_of["encode_stream_rows_tables"] = counts_tb[
+        "encode_stream_rows_tables"]
+    launches_of["scan_walk_resume"] = counts_2s["scan_walk_resume"]
     kernels = []
     for name, r in results.items():
         ms = time_ms(r["fn"], 50)
         plain_ms = time_ms(r["plain"], r.get("plain_reps", 5))
+        bound_ms, bound_by = bound(r["nbytes"], r.get("flops", 0))
         shape = r.get("shape", f"N={n_blocks}, L={L}, stream {img_ends[-1]} "
                       "bytes")
-        log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-            f"({shape})  [{card}]")
+        log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms by {bound_by} ({shape})  [{card}]")
         src, repl = KERNEL_INFO[name]
-        launches = counts_hf[name] if name in HOST_FREE_PATH else counts[name]
-        if name == "encode_blocks":
-            launches = k5_launches
-        err = scan_err[name] if name in HOST_FREE_PATH else r["err"]
+        err = scan_err[name] if name in scan_err else r["err"]
+        # No single PyTorch call computes any of these functions (a bit
+        # writer, a byte-offset scatter, a bit parser, a product with a
+        # rounding epilogue, a walker, a pointer chase): library_ms is null.
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": repl, "launches": launches,
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                        "replaces": repl, "launches": launches_of[name],
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": None})
+    log(f"  _unit_groups (the tables K9 reads, torch ops): "
+        f"{time_ms(unit_groups_fn, 50):.4f} ms (N={n_blocks}, L={L})  "
+        f"[{card}]")
 
     log("  -- boundary scan of one band by stream size: pure-Python scanner, "
         "C++ scanner, device scan (K6 + K7, upload and pull included)")
@@ -870,6 +1126,54 @@ def main() -> int:
             line += (f"; decode scan={scan} {dec_ms:.3f} ms = "
                      f"{mp / dec_ms * 1e3:.1f} MP/s")
         log(line + f"  [{card}]")
+    log(f"  -- encode host->host, enc='lv' and enc='tables' in turns "
+        f"(CUDA events, median of {REPS})")
+    for hw in sizes:
+        cfg, im = cfg_for(*hw), images[hw]
+        mp = hw[0] * hw[1] / 1e6
+        turns = []
+        for enc_name in ("lv", "tables", "lv", "tables"):
+            ms = median_call_ms(lambda: compress_ycbcr(im, cfg, enc=enc_name),
+                                REPS)
+            turns.append(f"{enc_name} {ms:.3f} ms = {mp / ms * 1e3:.1f} MP/s")
+        log(f"  {hw[0]}x{hw[1]}: " + "; ".join(turns) + f"  [{card}]")
+    log("  -- end table: single sweep (K6) and two sweeps (K6' twice, "
+        "survivors compacted on the device), mean of 50")
+    for hw, (s, n) in main_streams.items():
+        parts = [f"single {time_ms(lambda: DS.end_table(s, n, L), 50):.4f} ms"]
+        for cap in TWO_SWEEP_CAPS:
+            live = int((K.scan_walk_resume(
+                s, n, L, torch.arange(s.shape[0], device=dev), cap)[0]
+                == -2).sum())
+            ms = time_ms(lambda: DS.end_table(s, n, L, cap=cap), 50)
+            parts.append(f"cap {cap} {ms:.4f} ms ({live} resumed)")
+        parts.append(f"single {time_ms(lambda: DS.end_table(s, n, L), 50):.4f}"
+                     " ms")
+        log(f"  {hw[0]}x{hw[1]} stream, {n} bytes: " + "; ".join(parts)
+            + f"  [{card}]")
+    log("  -- device kernels of one call (torch.profiler CUDA events)")
+    s, n = main_streams[SIZES[0]]
+    W = -(-int(DC.block_bytes_of(flat).max()) // 4)
+    for label, fn in (
+            ("end_table(cap=0)", lambda: DS.end_table(s, n, L)),
+            ("end_table(cap=12)", lambda: DS.end_table(s, n, L, cap=12)),
+            ("encode_rows(enc='lv')", lambda: DC.encode_rows(flat, W)),
+            ("encode_rows(enc='tables')",
+             lambda: DC.encode_rows(flat, W, enc="tables"))):
+        log(f"  {label}, {SIZES[0][0]}x{SIZES[0][1]}: {device_kernels(fn)}  "
+            f"[{card}]")
+    h, w = SIZES[0]
+    log(f"  -- step pipeline, {h}x{w} Y band at the main configuration "
+        f"(host clock, median of 3)")
+    cfg = cfg_for(h, w)
+    for label, fn in (
+            ("compress_band_steps", lambda: steps.compress_band_steps(
+                band_y, cfg)),
+            ("compress_band", lambda: compress_band(band_y, cfg)),
+            ("decompress_band_steps", lambda: steps.decompress_band_steps(
+                band_f32, cfg)),
+            ("decompress_band", lambda: decompress_band(band_f32, cfg))):
+        log(f"  {label}: {median_host_ms(fn, 3):.3f} ms  [{card}]")
     log("  after timing: " + nvidia_smi(
         "clocks.sm,power.draw,power.limit,temperature.gpu"))
 

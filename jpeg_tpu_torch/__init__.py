@@ -16,7 +16,15 @@ host C++ scan or on the device (``scan=``).  Every public function takes
 ``device``: ``"cuda"`` (default) launches the kernels, ``"cpu"`` runs their
 plain PyTorch versions; and ``dtype``: ``None`` (f32) or ``torch.float64``,
 the parity mode, bit-exact with the reference (small images: its
-transforms loop over blocks on the host).
+transforms loop over blocks on the host).  ``compress_ycbcr`` /
+``compress_many`` / ``Jpeg`` also take ``enc``: ``"lv"`` (default) or
+``"tables"``, two kernels that write the same stream.
+
+``jpeg_tpu_torch.steps`` is the reference's invertible step pipeline (nine
+registered steps, ``compress_band_steps`` / ``decompress_band_steps``), with
+the reference's class-level objects beside it (``ops/transform.py``: ``DCT``,
+``Zigzag``; ``ops/quantize.py``: the quantizer classes;
+``entropy/bitio.py``, ``entropy/tuples.py``, ``utils/arrays.py``).
 """
 
 from .config import (BadArrayShapeError, BadQuantizationError,
@@ -25,6 +33,7 @@ from .config import (BadArrayShapeError, BadQuantizationError,
 from .api import (Jpeg, compress_band, compress_many, compress_ycbcr,
                   decompress_band, decompress_many, decompress_to_device,
                   decompress_to_ycbcr, psnr)
+from . import steps  # the reference's step pipeline (steps.step_classes)
 
 __all__ = [
     "BadArrayShapeError", "BadQuantizationError", "BadRleCodeError",

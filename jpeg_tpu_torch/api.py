@@ -68,15 +68,18 @@ class _Encode:
     levels: torch.Tensor            # (3N, L) int32
     stats: torch.Tensor             # (5,) int64: longest block, total,
     #                                 band 0 bytes, band 1 bytes, max |level|
+    enc: str = "lv"                 # row writer: K1 ("lv") or K9 ("tables")
     band_bytes: tuple = ()          # set by _advance_compress
     stream: Optional[torch.Tensor] = None   # phase-2 buffer (advance)
     overflow: Optional[torch.Tensor] = None  # phase-2 overflow flag
 
 
 def _start_compress(ycbcr: np.ndarray, config: Configuration,
-                    dev: torch.device, dtype) -> _Encode:
+                    dev: torch.device, dtype, enc: str = "lv") -> _Encode:
     """Upload the image and launch phase 1 (the coefficient transform and
-    every block's stream length) without waiting for it."""
+    every block's stream length) without waiting for it.  An ``enc`` the
+    configuration cannot take raises first."""
+    DC.check_enc(enc, config.dct_size ** 2)
     ycbcr = np.asarray(ycbcr)
     if ycbcr.ndim != 3 or ycbcr.shape[2] != 3:
         raise ValueError(f"expected (H, W, 3) YCbCr array, got {ycbcr.shape}")
@@ -87,14 +90,14 @@ def _start_compress(ycbcr: np.ndarray, config: Configuration,
     band_bytes = bb.reshape(3, -1).sum(dim=-1)
     stats = torch.stack([bb.max(), bb.sum(), band_bytes[0], band_bytes[1],
                          flat.abs().max().to(torch.int64)])
-    return _Encode(config, flat, stats)
+    return _Encode(config, flat, stats, enc)
 
 
 def _advance_compress(state: _Encode) -> _Encode:
     """Pull phase 1's stats (waits for phase 1 only), reject an
     unrepresentable amplitude BEFORE any entropy coding, and launch phase 2
-    (kernels K1, K2) at the sizes the stats give, without waiting for it.
-    Idempotent."""
+    (kernels K1 or K9, then K2) at the sizes the stats give, without waiting
+    for it.  Idempotent."""
     if state.stream is not None:
         return state
     max_bb, total, b0, b1, mx = (int(x) for x in state.stats.cpu())
@@ -102,7 +105,7 @@ def _advance_compress(state: _Encode) -> _Encode:
         raise BadRleCodeError(
             f"amplitude {mx} exceeds the representable {entropy.MAX_AMP}")
     state.stream, _, state.overflow = DC.encode_stream_sized(
-        state.levels, -(-max_bb // 4), total)
+        state.levels, -(-max_bb // 4), total, state.enc)
     state.band_bytes = (b0, b1, total - b0 - b1)
     return state
 
@@ -118,7 +121,7 @@ def _finish_compress(state: _Encode) -> bytes:
 
 
 def compress_ycbcr(ycbcr: np.ndarray, config: Configuration,
-                   device="cuda", dtype=None) -> bytes:
+                   device="cuda", dtype=None, enc: str = "lv") -> bytes:
     """(H, W, 3) uint8 YCbCr image -> container bytes.
 
     All three bands (including luma) go through the same subsample path,
@@ -126,21 +129,28 @@ def compress_ycbcr(ycbcr: np.ndarray, config: Configuration,
     coefficient transform and every block's stream length on ``device``,
     then one small pull of their stats (longest block, total, band lengths,
     max |level|) that rejects unrepresentable amplitudes BEFORE any entropy
-    coding and sizes the rows and the buffer of phase 2 (kernels K1, K2)."""
-    return _finish_compress(_start_compress(ycbcr, config,
-                                            resolve_device(device), dtype))
+    coding and sizes the rows and the buffer of phase 2 (kernels K1, K2).
+
+    ``enc`` picks how phase 2 writes each block's row: ``"lv"`` (the
+    default) from the levels in kernel K1; ``"tables"`` from unit-group
+    tables built by torch ops, in kernel K9 (the JAX package's tables path;
+    ``dct_size`` <= 8 only, else ``ValueError``).  The container is the
+    same bytes either way."""
+    return _finish_compress(_start_compress(
+        ycbcr, config, resolve_device(device), dtype, enc))
 
 
 def compress_many(images, config: Configuration, device="cuda",
-                  depth: int = 2, dtype=None) -> list:
+                  depth: int = 2, dtype=None, enc: str = "lv") -> list:
     """Pipelined encode of an iterable of (H, W, 3) YCbCr images.
 
     Keeps up to ``depth`` images in flight: image i's stream is pulled and
     packed on a worker thread while the caller's thread uploads image i+1
     and launches its kernels.  Results are identical to per-image
-    :func:`compress_ycbcr`."""
+    :func:`compress_ycbcr` with the same ``enc``."""
     if depth < 1:
         raise ValueError(f"depth must be >= 1, got {depth}")
+    DC.check_enc(enc, config.dct_size ** 2)
     dev = resolve_device(device)
     on_caller_stream = caller_stream(dev)
     pending: deque = deque()     # futures of bytes, then the newest state
@@ -160,7 +170,7 @@ def compress_many(images, config: Configuration, device="cuda",
         for img in images:
             if len(pending) >= depth:
                 out.append(resolve(pending.popleft()))
-            state = _start_compress(img, config, dev, dtype)
+            state = _start_compress(img, config, dev, dtype, enc)
             if pending:
                 # Advance the previous image (its stats pull and phase-2
                 # launch) after launching this one's phase 1, then hand its
@@ -318,15 +328,18 @@ def _host_scan_decompress(config: Configuration, streams,
 class Jpeg:
     """Image-level codec (reference pipeline/__init__.py:98-124)."""
 
-    def __init__(self, config: Configuration, device="cuda", dtype=None):
+    def __init__(self, config: Configuration, device="cuda", dtype=None,
+                 enc: str = "lv"):
         self.config = config
         self.device = device
         self.dtype = dtype
+        self.enc = enc
 
     def compress(self, image) -> bytes:
         """Compress a PIL image (converted to YCbCr) or (H, W, 3) array."""
         return compress_ycbcr(_to_ycbcr_array(image), self.config,
-                              device=self.device, dtype=self.dtype)
+                              device=self.device, dtype=self.dtype,
+                              enc=self.enc)
 
     @staticmethod
     def decompress(bytestream: bytes, device="cuda", scan: str = "auto",

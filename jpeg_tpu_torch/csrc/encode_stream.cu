@@ -21,51 +21,17 @@
 //
 // What the design does about it: one thread per block, so the serial walk
 // runs in registers: the bits accumulate in a 64-bit register and leave as
-// whole 32-bit words, with no shared state between threads and no
-// synchronisation.  `size` comes from __clz.  Zero runs of any length are
+// whole 32-bit words (bit_writer.cuh, shared with K9), with no shared state
+// between threads and no synchronisation.  `size` comes from __clz.  Zero runs of any length are
 // written one chain byte at a time, so any L is handled (the TPU kernel's
 // extra appends for runs over 74 zeros are not needed).  The TPU layout
 // (in-VMEM transposes, the funnel-shift append ladder, the f32-exponent
 // size trick) is gone.  A row never grows past W words: the kernel counts
 // the bytes of a longer block but does not store them, and the caller
 // checks blk_bytes <= 4*W and raises.
-#include "common.cuh"
+#include "bit_writer.cuh"
 
 namespace {
-
-struct BitWriter {
-  uint32_t* row;
-  int W;
-  int wi = 0;          // next word of the row
-  int nacc = 0;        // bits pending in acc, < 32 between appends
-  uint64_t acc = 0;
-  int64_t total = 0;   // bits appended so far
-
-  __device__ BitWriter(uint32_t* r, int w) : row(r), W(w) {}
-
-  // Append the low `nbits` (<= 23) bits of val, MSB first.
-  __device__ void append(int nbits, uint32_t val) {
-    acc = (acc << nbits) | val;
-    nacc += nbits;
-    total += nbits;
-    if (nacc >= 32) {
-      nacc -= 32;
-      uint32_t w = static_cast<uint32_t>(acc >> nacc);
-      if (wi < W) row[wi] = w;
-      ++wi;
-      acc &= (uint64_t(1) << nacc) - 1;
-    }
-  }
-
-  __device__ void finish() {
-    if (nacc > 0) {
-      uint32_t w = static_cast<uint32_t>(acc << (32 - nacc));
-      if (wi < W) row[wi] = w;
-      ++wi;
-    }
-    for (int k = wi; k < W; ++k) row[k] = 0;
-  }
-};
 
 __global__ void encode_rows_kernel(const int32_t* __restrict__ levels,
                                    int64_t n, int L, int W,
@@ -74,7 +40,7 @@ __global__ void encode_rows_kernel(const int32_t* __restrict__ levels,
   for (int64_t i = blockIdx.x * int64_t(blockDim.x) + threadIdx.x; i < n;
        i += int64_t(gridDim.x) * blockDim.x) {
     const int32_t* lv = levels + i * L;
-    BitWriter bw(rows + i * W, W);
+    jt::BitWriter bw(rows + i * W, W);
     int prev = -1;
     for (int s = 0; s < L; ++s) {
       int32_t a = lv[s];

@@ -11,7 +11,9 @@ Encode, in two phases as in the JAX package:
 2. :func:`encode_stream_sized`: kernel K1 (:func:`encode_rows`) writes each
    block's bytes as a row of big-endian words, and kernel K2
    (:func:`compact_rows`) deposits every row at its byte offset, giving the
-   contiguous stream.  Its overflow check raises on the host
+   contiguous stream.  With ``enc="tables"`` the rows come from the
+   unit-group tables (:func:`_unit_groups`) through kernel K9 instead, as
+   the JAX package's tables path does.  Its overflow check raises on the host
    (:func:`check_sized_ok`), as the JAX package's poison flag does.
 
 Decode: the block boundaries come from the host scan
@@ -66,12 +68,78 @@ def block_bytes_of(levels: torch.Tensor) -> torch.Tensor:
     return ((blk_bits + 7) >> 3).to(torch.int32)
 
 
-def encode_rows(levels: torch.Tensor, W: int):
+ENCS = ("lv", "tables")
+
+# A table group is 64 bits: 8 chain bytes of 0xF0 per 15 zeros + the code's
+# 8 + 15 bits fit only while a run holds at most 4 chains, which any L <= 75
+# guarantees (a run is at most L - 1 zeros).
+TABLES_MAX_L = 75
+
+
+def check_enc(enc: str, L: int) -> None:
+    """Raise for an unknown ``enc`` or for ``"tables"`` at L > 75."""
+    if enc not in ENCS:
+        raise ValueError(f"enc must be one of {ENCS}, got {enc!r}")
+    if enc == "tables" and L > TABLES_MAX_L:
+        raise ValueError(
+            f"tables encode path cannot carry L={L} zero-run chains; "
+            "use the lv kernel (enc='lv')")
+
+
+def _unit_groups(levels: torch.Tensor):
+    """(N, L) int32 levels -> per-slot unit-group tables for kernel K9
+    (``ops/kernels.py:encode_stream_rows_tables``).
+
+    Returns ``(cbits, vhi, vlo, blk_bytes)``: slot s of block i appends
+    ``cbits[i, s]`` bits of ``(vhi << 32) | vlo`` (int32 bit patterns of
+    uint32 words): the slot's zero-run chain bytes (0xF0 each) followed by
+    its run|size|sign|magnitude code, at most 55 bits while the slot holds
+    at most 4 chains (L <= 75).  Slot L is the EOB byte plus the pad to a
+    byte (all zeros); zero slots inside a run have cbits = 0.  Computed in
+    int64, with the JAX package's uint32 arithmetic (a chain count above 4
+    gives its garbage bit for bit: ``encode_rows`` refuses such L)."""
+    nz, absamp, size, nchains, rrem, group_bits = _geometry(levels)
+    mask32 = (1 << 32) - 1
+    sz = size.to(torch.int64)
+    nch = nchains.to(torch.int64)
+    sign = (levels > 0).to(torch.int64)
+    code = ((rrem.to(torch.int64) << (4 + sz)) | (sz << sz)
+            | (sign << (torch.where(nz, sz, 1) - 1))
+            | absamp.to(torch.int64)) & mask32
+    # nch bytes of 0xF0, right-justified: 0xF0F0F0F0 >> (32 - 8 nch); the
+    # uint32 shift count 32 - 8 nch wraps above 4 chains and clamps to 31.
+    k8 = 8 * nch
+    sh = torch.where(k8 > 32, 31, (32 - k8).clamp(max=31))
+    pk = torch.where(nch > 0, 0xF0F0F0F0 >> sh, 0)
+    s = 8 + sz                                    # code bits, 9..23 when nz
+    vlo = torch.where(nz, ((pk << s) | code) & mask32, 0)
+    vhi = torch.where(nz, pk >> (32 - s), 0)
+    sum_bits = group_bits.to(torch.int64).sum(dim=-1)
+    pad = (-(sum_bits + 8)) & 7
+    blk_bytes = ((sum_bits + 8 + pad) >> 3).to(torch.int32)
+    zero = torch.zeros_like(vlo[:, :1])
+    cbits = torch.cat([group_bits.to(torch.int32),
+                       (8 + pad).to(torch.int32)[:, None]], dim=-1)
+    vhi = K._to_i32_words(torch.cat([vhi, zero], dim=-1))
+    vlo = K._to_i32_words(torch.cat([vlo, zero], dim=-1))
+    return cbits, vhi, vlo, blk_bytes
+
+
+def encode_rows(levels: torch.Tensor, W: int, enc: str = "lv"):
     """(N, L) int32 levels -> ((N, W) int32 stream-word rows, (N,) int32
-    block bytes) through kernel K1.  W must cover the longest block
+    block bytes).  W must cover the longest block
     (``ceil(max(block_bytes_of(levels)) / 4)``; :func:`encode_stream_sized`
-    checks it)."""
-    return K.encode_stream_rows(levels, W)
+    checks it).
+
+    ``enc="lv"`` runs kernel K1 on the levels; ``enc="tables"`` builds the
+    unit-group tables (:func:`_unit_groups`, which also give the block
+    bytes) and runs kernel K9 on them, for L <= 75 only.  The rows are the
+    same."""
+    check_enc(enc, levels.shape[-1])
+    if enc == "lv":
+        return K.encode_stream_rows(levels, W)
+    cbits, vhi, vlo, blk_bytes = _unit_groups(levels)
+    return K.encode_stream_rows_tables(cbits, vhi, vlo, W), blk_bytes
 
 
 def compact_rows(rows: torch.Tensor, blk_bytes: torch.Tensor,
@@ -82,17 +150,18 @@ def compact_rows(rows: torch.Tensor, blk_bytes: torch.Tensor,
     return K.deposit_rows(rows, blk_bytes, cap)
 
 
-def encode_stream_sized(levels: torch.Tensor, W: int, cap: int):
+def encode_stream_sized(levels: torch.Tensor, W: int, cap: int,
+                        enc: str = "lv"):
     """(N, L) int32 levels -> (bytes (cap,) uint8, blk_bytes (N,) int32,
     overflowed 0-d bool tensor), with the row width W and the buffer cap
-    sized from phase 1's stats.
+    sized from phase 1's stats, through :func:`encode_rows`' ``enc``.
 
     A block needing more than 4*W bytes, or a stream longer than ``cap``,
     would be truncated silently (the wire format has no redundancy to catch
     it), so both are tested against the byte counts K1 computed; on
     overflow the buffer is zeroed and the flag set, and the host raises
     through :func:`check_sized_ok`."""
-    rows, blk_bytes = encode_rows(levels, W)
+    rows, blk_bytes = encode_rows(levels, W, enc)
     buf = compact_rows(rows, blk_bytes, cap)
     bad = (blk_bytes.max() > 4 * W) | (blk_bytes.to(torch.int64).sum() > cap)
     return buf.masked_fill(bad, 0), blk_bytes, bad

@@ -47,13 +47,56 @@ PY_SCAN_DEVICE_MIN_BYTES = 1 << 10
 SCANS = ("auto", "host", "device")
 
 
-def end_table(stream: torch.Tensor, n_bytes: int, L: int) -> torch.Tensor:
-    """(P,) uint8 stream buffer -> (P + 2,) int32 end table (kernel K6).
+def end_table(stream: torch.Tensor, n_bytes: int, L: int,
+              cap: int = 0) -> torch.Tensor:
+    """(P,) uint8 stream buffer -> (P + 2,) int32 end table.
 
     ``E[q]`` is the end byte of the block that starts at byte q, or
     ``ERR = P + 1``; ``n_bytes`` is the stream's true length, where walkers
-    stop."""
-    return K.scan_walk(stream, n_bytes, L)
+    stop.  ``cap=0`` (every caller's default) walks every byte in one sweep
+    (kernel K6); ``cap > 0`` runs :func:`end_table_two_sweep`, which gives
+    the same table."""
+    if cap < 0:
+        raise ValueError(f"cap must be >= 0, got {cap}")
+    if cap == 0 or stream.shape[0] == 0:
+        return K.scan_walk(stream, n_bytes, L)
+    return end_table_two_sweep(stream, n_bytes, L, cap)
+
+
+def end_table_two_sweep(stream: torch.Tensor, n_bytes: int, L: int,
+                        cap: int) -> torch.Tensor:
+    """:func:`end_table` in two sweeps (kernel K6' twice), for ``cap > 0``.
+
+    Sweep 1 walks every byte for at most ``cap`` units; the walkers still
+    live are compacted on the device (a prefix sum, then a scatter of their
+    bytes into a P-sized index buffer); sweep 2 resumes them for the rest
+    of the host scanner's unit budget, reading their count from device
+    memory, so the host never waits.  The table is the single sweep's, bit
+    for bit."""
+    P = stream.shape[0]
+    budget = K._walk_units(L)
+    cap = min(cap, budget)
+    err = P + 1
+    dev = stream.device
+    q = torch.arange(P, dtype=torch.int64, device=dev)
+    length, c, w = K.scan_walk_resume(stream, n_bytes, L, q, cap)
+    E = torch.full((P + 2,), err, dtype=torch.int32, device=dev)
+    E[:P] = torch.where(length >= 0, q + length, err).to(torch.int32)
+    if cap == budget:            # no budget left: the live walkers fail
+        return E
+    live = length == -2
+    slot = torch.cumsum(live, 0) - 1
+    n_live = slot[-1:] + 1
+    # Survivor k's byte goes to sel[k]; the rest point at P (a walker past
+    # the stream, whose ERR lands on E[P], which is ERR already).
+    sel = torch.full((P + 1,), P, dtype=torch.int64, device=dev)
+    sel[torch.where(live, slot, P)] = q
+    sel = sel[:P]
+    at = sel.clamp(max=P - 1)
+    length2, _, _ = K.scan_walk_resume(stream, n_bytes, L, sel, budget - cap,
+                                       c[at], w[at], n_live)
+    E[sel] = torch.where(length2 >= 0, sel + length2, err).to(torch.int32)
+    return E
 
 
 def orbit_starts(E: torch.Tensor, target: int, num_blocks: int,

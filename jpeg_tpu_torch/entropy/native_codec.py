@@ -1,10 +1,11 @@
 """ctypes bindings for the host C++ entropy codec (built lazily with g++).
 
-The C++ source is the JAX package's ``jpeg_tpu/entropy/native/entropy.cpp``,
-compiled here by path: reading a file is not an import, so one source
-serves both packages and the port never imports ``jpeg_tpu``.  The shared
-object goes into the repository's ``build/native/`` directory, keyed by the
-source hash, so a rebuilt source never reuses a stale library.
+The C++ source is the port's own ``native/entropy.cpp``, a byte-for-byte
+copy of the JAX package's ``jpeg_tpu/entropy/native/entropy.cpp`` (a test
+holds the two equal), so the port neither imports nor reads anything of
+``jpeg_tpu``.  The shared object goes into the repository's
+``build/native/`` directory, keyed by the source hash, so a rebuilt source
+never reuses a stale library.
 
 This is the host side of the codec (the serial boundary scan
 ``jt_scan_offsets`` on decode, and the reference encoder the device stream
@@ -23,9 +24,9 @@ import numpy as np
 
 from ..config import BadRleCodeError, BadStreamError
 
-_REPO = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
-_SRC = os.path.join(_REPO, "jpeg_tpu", "entropy", "native", "entropy.cpp")
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_REPO = os.path.dirname(os.path.dirname(_HERE))
+_SRC = os.path.join(_HERE, "native", "entropy.cpp")
 _BUILD_DIR = os.path.join(_REPO, "build", "native")
 _lib: Optional[ctypes.CDLL] = None
 _build_error: Optional[str] = None

@@ -2,30 +2,26 @@
 
 Counterpart of ``jpeg_tpu/ops/blocks.py``.  Every function works on the
 last two axes, so a leading band batch passes through.  Edge replication
-goes through ``torch.nn.functional.pad(mode="replicate")``, which takes
-only floating tensors: callers cast first (exactly, to f32 or f64), which
-gives the same values as the JAX package's pad-then-cast.
+is an index gather, so it takes tensors of any dtype.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..config import padded_size
 
 
 def pad_edge_hw(a: torch.Tensor, factor: int) -> torch.Tensor:
-    """Pad the last two axes of a floating tensor up to a multiple of
-    ``factor`` by repeating the last row and column."""
-    ph = padded_size(a.shape[-2], factor) - a.shape[-2]
-    pw = padded_size(a.shape[-1], factor) - a.shape[-1]
-    if ph == 0 and pw == 0:
+    """Pad the last two axes up to a multiple of ``factor`` by repeating
+    the last row and column."""
+    h, w = a.shape[-2:]
+    H, W = padded_size(h, factor), padded_size(w, factor)
+    if (H, W) == (h, w):
         return a
-    lead = a.shape[:-2]
-    x = a.reshape(-1, *a.shape[-2:])                 # replicate wants 3-d
-    x = F.pad(x, (0, pw, 0, ph), mode="replicate")
-    return x.reshape(*lead, *x.shape[-2:])
+    rows = torch.arange(H, device=a.device).clamp(max=h - 1)
+    cols = torch.arange(W, device=a.device).clamp(max=w - 1)
+    return a.index_select(-2, rows).index_select(-1, cols)
 
 
 def pad_edge(a: torch.Tensor, factor: int) -> torch.Tensor:

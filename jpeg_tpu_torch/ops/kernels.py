@@ -5,19 +5,22 @@ kernel is CUDA C++ under ``jpeg_tpu_torch/csrc/``, compiled by ``nvcc`` for
 ``sm_90a`` at first use into ``build/cuda/<source hash>/`` and loaded with
 ctypes (plain C entry points, see ``csrc/common.cuh``).
 
-=====================  ===========================  ======================
-wrapper                source                       replaces (Pallas)
-=====================  ===========================  ======================
-encode_stream_rows     csrc/encode_stream.cu        _encode_stream_lv_kernel
-deposit_rows           csrc/compact.cu              _merge_rows_kernel +
+=========================  =======================  ========================
+wrapper                    source                   replaces (Pallas)
+=========================  =======================  ========================
+encode_stream_rows         csrc/encode_stream.cu    _encode_stream_lv_kernel
+encode_stream_rows_tables  csrc/encode_tables.cu    _encode_stream_kernel
+deposit_rows               csrc/compact.cu          _merge_rows_kernel +
                                                     compact_rows' gather
-decode_stream_blocks   csrc/decode_stream.cu        _decode_stream_kernel
-decode_blocks          csrc/decode_blocks.cu        _decode_kernel
-encode_blocks          csrc/encode_blocks.cu        _encode_kernel
-scan_walk              csrc/scan_walk.cu            _scan_walk_kernel_single
-chase_starts           csrc/chase.cu                _chase_kernel
-chase_starts_multi     csrc/chase.cu                _chase_multi_kernel
-=====================  ===========================  ======================
+decode_stream_blocks       csrc/decode_stream.cu    _decode_stream_kernel
+decode_blocks              csrc/decode_blocks.cu    _decode_kernel
+encode_blocks              csrc/encode_blocks.cu    _encode_kernel
+scan_walk                  csrc/scan_walk.cu        _scan_walk_kernel_single
+scan_walk_resume           csrc/scan_walk.cu        _scan_walk_kernel
+                                                    (two-sweep form)
+chase_starts               csrc/chase.cu            _chase_kernel
+chase_starts_multi         csrc/chase.cu            _chase_multi_kernel
+=========================  =======================  ========================
 
 Dispatch is by the device of the tensors a wrapper is given: CPU tensors
 take the plain PyTorch version (``*_plain``, which also runs on CUDA
@@ -60,6 +63,8 @@ _I32 = ctypes.c_int32
 _SIGNATURES = {
     # levels, n, L, W, rows, blk_bytes, device, stream
     "jt_encode_rows": (_P, _I64, _I32, _I32, _P, _P, _I32, _P),
+    # cbits, vhi, vlo, n, L + 1, W, rows, device, stream
+    "jt_encode_tables": (_P, _P, _P, _I64, _I32, _I32, _P, _I32, _P),
     # rows, blk_bytes, offsets, n, W, out, cap, device, stream
     "jt_deposit_rows": (_P, _P, _P, _I64, _I32, _P, _I64, _I32, _P),
     # stream bytes, nbytes, starts, n, L, out, device, stream
@@ -70,6 +75,10 @@ _SIGNATURES = {
     "jt_encode_blocks": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _P, _I32, _P),
     # stream bytes, P, limit bits, L, end table, device, stream
     "jt_scan_walk": (_P, _I64, _I64, _I32, _P, _I32, _P),
+    # stream bytes, P, limit bits, L, q, c0, w0, M, n_live, steps,
+    # lengths, bits, indices, device, stream
+    "jt_scan_walk_resume": (_P, _I64, _I64, _I32, _P, _P, _P, _I64, _P, _I32,
+                            _P, _P, _P, _I32, _P),
     # end table, P2, target, s0, nb, starts, ok, device, stream
     "jt_chase": (_P, _I64, _I64, _I64, _I64, _P, _P, _I32, _P),
     # end table, P2, targets, s0s, B, nb, starts, ok, device, stream
@@ -218,7 +227,7 @@ def _to_i32_words(w: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 class _RowWriter:
-    """Vectorised counterpart of ``csrc/encode_stream.cu``'s BitWriter: one
+    """Vectorised counterpart of ``csrc/bit_writer.cuh``'s BitWriter: one
     int64 bit accumulator per block; words leave it at 32 bits, and words
     past a row's W go to a sink column (counted, not stored)."""
 
@@ -235,7 +244,7 @@ class _RowWriter:
         self.wi = self.wi + on.to(torch.int64)
 
     def append(self, nbits, val):
-        """Append the low ``nbits`` (<= 23) bits of ``val``, MSB first."""
+        """Append the low ``nbits`` (<= 32) bits of ``val``, MSB first."""
         acc = (self.acc << nbits) | val
         nacc = self.nacc + nbits
         full = nacc >= 32
@@ -302,6 +311,58 @@ def encode_stream_rows(levels: torch.Tensor, W: int):
                 rows.data_ptr(), blk_bytes.data_ptr())
         _count(encode_stream_rows)
     return rows, blk_bytes
+
+
+# ---------------------------------------------------------------------------
+# K9: unit-group tables -> stream-word rows (csrc/encode_tables.cu)
+# ---------------------------------------------------------------------------
+
+_MAX_GROUP_BITS = 64
+
+
+def encode_stream_rows_tables_plain(cbits: torch.Tensor, vhi: torch.Tensor,
+                                    vlo: torch.Tensor, W: int) -> torch.Tensor:
+    """Plain version of K9: a loop over the L + 1 slots, vectorised over
+    blocks, appending each group as its high ``c - 32`` bits (when
+    ``c > 32``) and then its low bits through :class:`_RowWriter`."""
+    n, L1 = cbits.shape
+    bw = _RowWriter(n, W, cbits.device)
+    mask32 = (1 << 32) - 1
+    for s in range(L1):
+        c = cbits[:, s].to(torch.int64).clamp(0, _MAX_GROUP_BITS)
+        hi = vhi[:, s].to(torch.int64) & mask32
+        lo = vlo[:, s].to(torch.int64) & mask32
+        nhi = (c - 32).clamp(min=0)
+        bw.append(nhi, hi & ((1 << nhi) - 1))
+        nlo = c - nhi
+        bw.append(nlo, lo & ((1 << nlo) - 1))
+    return bw.finish()[0]
+
+
+def encode_stream_rows_tables(cbits: torch.Tensor, vhi: torch.Tensor,
+                              vlo: torch.Tensor, W: int) -> torch.Tensor:
+    """(N, L+1) int32 unit-group tables (``entropy/device_codec.py:
+    _unit_groups``) -> (N, W) int32 stream-word rows, the same rows as
+    :func:`encode_stream_rows` writes from the levels: slot s of block i
+    appends ``cbits[i, s]`` (0..64) bits of ``(vhi << 32) | vlo``.  A block
+    longer than 4*W bytes is truncated in its row; callers check the block
+    bytes, which ``_unit_groups`` returns, against 4*W."""
+    for name, t in (("cbits", cbits), ("vhi", vhi), ("vlo", vlo)):
+        _check(t, name, torch.int32, 2)
+    if vhi.shape != cbits.shape or vlo.shape != cbits.shape:
+        raise ValueError(f"tables of shapes {tuple(cbits.shape)}, "
+                         f"{tuple(vhi.shape)}, {tuple(vlo.shape)} differ")
+    if W < 1:
+        raise ValueError(f"row width W must be >= 1 word, got {W}")
+    if not _on_cuda(cbits, vhi, vlo):
+        return encode_stream_rows_tables_plain(cbits, vhi, vlo, W)
+    n, L1 = cbits.shape
+    rows = torch.empty((n, W), dtype=torch.int32, device=cbits.device)
+    if n:
+        _launch("jt_encode_tables", cbits.device, cbits.data_ptr(),
+                vhi.data_ptr(), vlo.data_ptr(), n, L1, W, rows.data_ptr())
+        _count(encode_stream_rows_tables)
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -569,6 +630,110 @@ def scan_walk(stream: torch.Tensor, n_bytes: int, L: int) -> torch.Tensor:
     return E
 
 
+def _walk_units(L: int) -> int:
+    """The host scanner's unit budget for one block."""
+    return L + L // MAX_RUN + 2
+
+
+def scan_walk_resume_plain(stream: torch.Tensor, n_bytes: int, L: int,
+                           q: torch.Tensor, steps: int, c0: torch.Tensor,
+                           w0: torch.Tensor, n_live: torch.Tensor):
+    """Plain version of K6': :func:`scan_walk_plain`'s step loop over M
+    walkers that start ``c0`` bits into the block at byte ``q`` with index
+    ``w0``, for at most ``steps`` units; walkers at index >= ``n_live``
+    do not walk."""
+    P = stream.shape[0]
+    M = q.shape[0]
+    dev = stream.device
+    b = torch.cat([stream.to(torch.int64),
+                   torch.zeros(2, dtype=torch.int64, device=dev)])
+    w16 = (b[:-1] << 8) | b[1:]                   # (P + 1,), w16[P] = 0
+    limit = 8 * n_bytes
+    start = q * 8
+    pos = start + c0.to(torch.int64)
+    widx = w0.to(torch.int64)
+    done = torch.zeros(M, dtype=torch.bool, device=dev)
+    bad = torch.zeros(M, dtype=torch.bool, device=dev)
+    skip = torch.arange(M, device=dev) >= n_live.reshape(())
+    for _ in range(steps):
+        live = ~(done | bad | skip)
+        if not bool(live.any()):
+            break
+        h = (w16[(pos >> 3).clamp(0, P)] >> (8 - (pos & 7))) & 0xFF
+        run = h >> 4
+        size = h & 0xF
+        eob = h == 0
+        chain = h == 0xF0
+        code = size != 0
+        new_bad = live & ((pos + 8 > limit) | (~code & ~eob & ~chain)
+                          | (code & (pos + 8 + size > limit))
+                          | (code & (widx + run >= L)))
+        new_done = live & ~new_bad & eob
+        step = live & ~new_bad & ~eob
+        pos = torch.where(step, pos + torch.where(code, 8 + size, 8), pos)
+        widx = torch.where(step, widx + torch.where(code, run + 1, MAX_RUN),
+                           widx)
+        done = done | new_done
+        bad = bad | new_bad
+    c = pos - start
+    length = torch.where(done, (c + 15) >> 3, torch.where(bad, -1, -2))
+    return (length.to(torch.int32), c.to(torch.int32), widx.to(torch.int32))
+
+
+def scan_walk_resume(stream: torch.Tensor, n_bytes: int, L: int,
+                     q: torch.Tensor, cap: int, c0=None, w0=None,
+                     n_live=None):
+    """K6's walkers capped and resumed (the two-sweep form).
+
+    Walker i walks the block that starts at byte ``q[i]`` (int64), already
+    ``c0[i]`` bits into it with coefficient index ``w0[i]`` (int32; zero
+    when None), for at most ``cap`` units (0: the host scanner's whole
+    budget, L + L//15 + 2).  Returns three (M,) int32 tensors: the block's
+    byte length (EOB padded to a byte of the block), or -1 where the host
+    scanner rejects it, or -2 for a walker still live at the cap; the bits
+    consumed from the block's start; the coefficient index reached.  Feed
+    the last two back as ``c0`` / ``w0`` to resume.  ``n_live`` (one int64
+    on the tensors' device, or None for all M) is how many of the walkers
+    walk: the rest return (-2, c0, w0) at once, and the count is read on
+    the device, so a caller never waits for it."""
+    _check(stream, "stream", torch.uint8, 1)
+    _check(q, "q", torch.int64, 1)
+    P, M = stream.shape[0], q.shape[0]
+    if not 0 <= n_bytes <= P:
+        raise ValueError(f"n_bytes must be in [0, {P}], got {n_bytes}")
+    if L < 1:
+        raise ValueError(f"L must be >= 1, got {L}")
+    if cap < 0:
+        raise ValueError(f"cap must be >= 0, got {cap}")
+    steps = _walk_units(L) if cap == 0 else min(cap, _walk_units(L))
+    for name, t in (("c0", c0), ("w0", w0)):
+        if t is not None:
+            _check(t, name, torch.int32, 1)
+            if t.shape[0] != M:
+                raise ValueError(f"{M} walkers but {t.shape[0]} {name}")
+    if n_live is not None:
+        _check(n_live, "n_live", torch.int64, n_live.dim())
+        if n_live.numel() != 1:
+            raise ValueError("n_live must hold one count")
+    given = [t for t in (c0, w0, n_live) if t is not None]
+    if not _on_cuda(stream, q, *given):
+        zero = torch.zeros(M, dtype=torch.int32, device=q.device)
+        return scan_walk_resume_plain(
+            stream, n_bytes, L, q, steps, zero if c0 is None else c0,
+            zero if w0 is None else w0,
+            torch.tensor(M) if n_live is None else n_live)
+    out = [torch.empty(M, dtype=torch.int32, device=q.device)
+           for _ in range(3)]
+    if M:
+        _launch("jt_scan_walk_resume", stream.device, stream.data_ptr(), P,
+                8 * n_bytes, L, q.data_ptr(),
+                *(None if t is None else t.data_ptr() for t in (c0, w0)), M,
+                None if n_live is None else n_live.data_ptr(), steps,
+                *(t.data_ptr() for t in out))
+        _count(scan_walk_resume)
+    return tuple(out)
+
+
 # ---------------------------------------------------------------------------
 # K7, K8: end table -> orbit starts + end check (csrc/chase.cu)
 # ---------------------------------------------------------------------------
@@ -660,9 +825,9 @@ def chase_starts_multi(E: torch.Tensor, targets: torch.Tensor,
     return starts, ok
 
 
-KERNELS = (encode_stream_rows, deposit_rows, decode_stream_blocks,
-           decode_blocks, encode_blocks, scan_walk, chase_starts,
-           chase_starts_multi)
+KERNELS = (encode_stream_rows, encode_stream_rows_tables, deposit_rows,
+           decode_stream_blocks, decode_blocks, encode_blocks, scan_walk,
+           scan_walk_resume, chase_starts, chase_starts_multi)
 
 
 def reset_launch_counts() -> None:

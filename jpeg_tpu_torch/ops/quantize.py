@@ -146,3 +146,67 @@ def dequantize(levels_zz: torch.Tensor, method: QuantizationMethod,
                             dtype=levels_zz.dtype, device=levels_zz.device)
         return levels_zz * q
     raise ValueError(name)
+
+
+class RoundingQuantizer:
+    """The reference's quantizer objects, on one (d, d) block in NumPy:
+    ``quantize`` rounds, ``restore`` is the identity."""
+
+    def quantize(self, a):
+        return np.round(a)
+
+    def restore(self, a):
+        return a
+
+
+class DiscardingQuantizer(RoundingQuantizer):
+    """Round, then zero all rows / columns >= keep."""
+
+    def __init__(self, keep: int = 2):
+        self.keep = keep
+
+    def quantize(self, a):
+        res = np.round(np.asarray(a)).copy()
+        res[self.keep:] = 0
+        res[:, self.keep:] = 0
+        return res
+
+
+class DivisionQuantizer(RoundingQuantizer):
+    """round(a / divisor); restore a * divisor."""
+
+    def __init__(self, divisor: float = 40):
+        self.divisor = divisor
+
+    def quantize(self, a):
+        return np.round(np.asarray(a) / float(self.divisor))
+
+    def restore(self, a):
+        return np.asarray(a) * self.divisor
+
+
+class JpegQuantizationTable(RoundingQuantizer):
+    """The standard 8x8 luminance table: round(a * (1/q)); restore
+    round(a * q)."""
+
+    table = JPEG_QTABLE
+
+    def quantize(self, a):
+        return np.round(np.asarray(a) * (1.0 / JPEG_QTABLE))
+
+    def restore(self, a):
+        return np.round(np.asarray(a) * JPEG_QTABLE)
+
+
+#: Scheme name -> quantizer class.
+QUANTIZER_CLASSES = {
+    "none": RoundingQuantizer,
+    "discard": DiscardingQuantizer,
+    "divide": DivisionQuantizer,
+    "qtable": JpegQuantizationTable,
+}
+
+
+def quantizer_for(method: QuantizationMethod):
+    """The quantizer object for a :class:`QuantizationMethod`."""
+    return QUANTIZER_CLASSES[method.name](**method.params)

@@ -5,7 +5,9 @@ The numpy (float64) operator builders of ``jpeg_tpu/ops/transform.py``,
 with the same arithmetic so the operators compare bitwise.  They are the
 codec's "weights": built once per configuration in f64 and cast to f32
 where a module stores them as buffers (``ops/band.py``).  The f64 parity
-mode's reference-order host transforms (``exact_*``) are here too.
+mode's reference-order host transforms (``exact_*``), the step API's
+row-major operators (``kron_*``) and the reference's ``DCT`` and
+``Zigzag`` objects are here too.
 
 The DCT matrix is the reference's *unnormalized* DCT-II,
 ``A[k, n] = cos(pi/N * (n + 0.5) * k)``; the inverse is ``A.T @ D^-2`` with
@@ -16,6 +18,8 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+
+from ..config import BadArrayShapeError
 
 
 @functools.lru_cache(maxsize=None)
@@ -286,3 +290,94 @@ def exact_izigzag_idft2_real(coeffs_zz: np.ndarray, n: int) -> np.ndarray:
     flat = np.take(coeffs_zz, inverse_zigzag_permutation(n), axis=-1)
     blocks = flat.reshape(flat.shape[:-1] + (n, n))
     return _host_ifft2_real(blocks, n)
+
+
+def _host_fft2_complex(blocks: np.ndarray, n: int) -> np.ndarray:
+    flat = np.ascontiguousarray(blocks).reshape(-1, n, n)
+    out = np.empty(flat.shape, dtype=np.complex128)
+    for b in range(flat.shape[0]):
+        out[b] = np.fft.fft2(flat[b])
+    return out.reshape(blocks.shape)
+
+
+def _host_ifft2_complex(blocks: np.ndarray, n: int) -> np.ndarray:
+    flat = np.ascontiguousarray(blocks).reshape(-1, n, n)
+    out = np.empty(flat.shape, dtype=np.complex128)
+    for b in range(flat.shape[0]):
+        out[b] = np.fft.ifft2(flat[b])
+    return out.reshape(blocks.shape)
+
+
+def exact_fft2_blocks(blocks: np.ndarray, n: int) -> np.ndarray:
+    """Parity-mode per-block ``np.fft.fft2`` on (..., d, d), complex128."""
+    return _host_fft2_complex(blocks, n)
+
+
+def exact_ifft2_blocks(blocks: np.ndarray, n: int) -> np.ndarray:
+    """Parity-mode per-block ``np.fft.ifft2`` on (..., d, d), complex128."""
+    return _host_ifft2_complex(blocks, n)
+
+
+def exact_dct2_blocks(blocks: np.ndarray, n: int) -> np.ndarray:
+    """Parity-mode forward DCT on (..., d, d) blocks (no zigzag)."""
+    return _host_dct2(blocks, n)
+
+
+def exact_idct2_blocks(blocks: np.ndarray, n: int) -> np.ndarray:
+    """Parity-mode inverse DCT on (..., d, d) blocks (no zigzag)."""
+    return _host_idct2(blocks, n)
+
+
+@functools.lru_cache(maxsize=None)
+def kron_operator(n: int) -> np.ndarray:
+    """(d*d, d*d) forward 2-D DCT operator in row-major order (no zigzag)."""
+    a = dct_matrix(n)
+    return np.kron(a, a)
+
+
+@functools.lru_cache(maxsize=None)
+def kron_inverse_operator(n: int) -> np.ndarray:
+    """(d*d, d*d) inverse 2-D DCT operator in row-major order (no zigzag)."""
+    b = idct_matrix(n)
+    return np.kron(b, b)
+
+
+class DCT:
+    """The reference's DCT object: 1-D / 2-D transforms with the same
+    unnormalized scale, as matrix products (NumPy, float64)."""
+
+    def __init__(self, size: int):
+        self._size = size
+
+    def transform_1d(self, x):
+        return np.asarray(dct_matrix(self._size) @ np.asarray(x))
+
+    def transform_1d_inverse(self, x):
+        return np.asarray(idct_matrix(self._size) @ np.asarray(x))
+
+    def transform_2d(self, a):
+        m = dct_matrix(self._size)
+        return np.asarray(m @ np.asarray(a) @ m.T)
+
+    def transform_2d_inverse(self, a):
+        b = idct_matrix(self._size)
+        return np.asarray(b @ np.asarray(a) @ b.T)
+
+
+class Zigzag:
+    """The reference's zigzag gather / scatter for one block."""
+
+    def __init__(self, size: int):
+        self._size = size
+
+    def zigzag_order(self, block):
+        block = np.asarray(block)
+        if block.shape != (self._size, self._size):
+            raise BadArrayShapeError(block.shape)
+        return block.reshape(-1)[zigzag_permutation(self._size)]
+
+    def restore(self, zigzag_vec):
+        v = np.asarray(zigzag_vec)
+        if v.shape != (self._size * self._size,):
+            raise BadArrayShapeError(v.shape)
+        return v[inverse_zigzag_permutation(self._size)]

@@ -291,4 +291,36 @@ def test_port_sources_import_no_jax_and_compile_nothing():
                 for name in names:
                     assert name.split(".")[0] not in ("jax", "jaxlib",
                                                       "jpeg_tpu"), (f, name)
-    assert seen >= 16          # device_scan.py included
+    assert seen >= 22          # steps.py, entropy/bitio.py, ... included
+
+
+def _string_constants(src: str):
+    for node in ast.walk(ast.parse(src)):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            yield node.value
+
+
+def test_port_opens_and_compiles_no_file_of_jpeg_tpu():
+    """The port keeps its own copy of what it needs (the host C++ codec
+    included): no module holds a path under jpeg_tpu/, whole or as a
+    ``"jpeg_tpu"`` component to join (a docstring may name a counterpart
+    in backquotes), and the codec compiles the port's own entropy.cpp, a
+    byte-for-byte copy of the JAX package's."""
+    import re
+    from jpeg_tpu_torch.entropy import native_codec
+    pkg = os.path.join(REPO, "jpeg_tpu_torch")
+    for root, _, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                src = open(os.path.join(root, f)).read()
+                assert "jpeg_tpu" not in set(_string_constants(src)), f
+                assert not re.search(r"(?<![`\w])jpeg_tpu/", src), f
+    src = os.path.realpath(native_codec._SRC)
+    assert src == os.path.join(os.path.realpath(pkg), "entropy", "native",
+                               "entropy.cpp")
+    with open(src, "rb") as a, open(os.path.join(
+            REPO, "jpeg_tpu", "entropy", "native", "entropy.cpp"), "rb") as b:
+        assert a.read() == b.read()
+    if native_codec.available():
+        so = native_codec._so_path()
+        assert so.startswith(os.path.join(REPO, "build", "native"))

@@ -113,6 +113,10 @@ def test_block_ops_bitwise_equal(h, w, bs):
         np.testing.assert_array_equal(
             B.pad_edge_hw(t3.to(torch.float64), f).numpy(),
             np.asarray(JB.pad_edge_hw(jnp.asarray(a3), f)))
+        # any dtype, uncast
+        np.testing.assert_array_equal(
+            B.pad_edge_hw(t3, f).numpy(),
+            np.asarray(JB.pad_edge_hw(jnp.asarray(a3), f)))
     # f64: sum, then a true division (jit: behind JAX's barrier)
     want = np.asarray(jax.jit(JB.subsample, static_argnums=1)(
         ja.astype(jnp.float64), bs))

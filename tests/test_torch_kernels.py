@@ -228,9 +228,10 @@ def test_wrappers_check_inputs_and_never_fall_back():
                          torch.zeros(2, dtype=torch.int64),
                          torch.zeros(2, dtype=torch.int64), 3)
     assert K.launch_counts() == before      # the plain version launches nothing
-    assert set(before) == {"encode_stream_rows", "deposit_rows",
-                           "decode_stream_blocks", "decode_blocks",
-                           "encode_blocks", "scan_walk", "chase_starts",
+    assert set(before) == {"encode_stream_rows", "encode_stream_rows_tables",
+                           "deposit_rows", "decode_stream_blocks",
+                           "decode_blocks", "encode_blocks", "scan_walk",
+                           "scan_walk_resume", "chase_starts",
                            "chase_starts_multi"}
     with pytest.raises(ValueError, match="n_bytes"):
         K.scan_walk(torch.zeros(4, dtype=torch.uint8), 5, 64)
@@ -255,4 +256,9 @@ def test_kernel_build_is_keyed_by_source_hash():
         K.NVCC_FLAGS
     assert [os.path.basename(p) for p in K._sources()] == [
         "chase.cu", "compact.cu", "decode_blocks.cu", "decode_stream.cu",
-        "encode_blocks.cu", "encode_stream.cu", "scan_walk.cu"]
+        "encode_blocks.cu", "encode_stream.cu", "encode_tables.cu",
+        "scan_walk.cu"]
+    # the two encode kernels share one bit writer
+    for src in ("encode_stream.cu", "encode_tables.cu"):
+        with open(os.path.join(K.CSRC, src)) as f:
+            assert '#include "bit_writer.cuh"' in f.read(), src
