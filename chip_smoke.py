@@ -10,7 +10,9 @@ Phases, in order (any failure raises and exits non-zero, printing no
 result):
 
 1. Require a CUDA device; print ``nvidia-smi``'s card name and power limit
-   and the torch / CUDA versions.
+   and the torch / CUDA versions.  The device scan's "device scan rejected"
+   RuntimeWarning (``device_scan.scan_offsets_hybrid``, which would return
+   the host scanner's starts) is an error for the whole run.
 2. Build the ten CUDA kernels from ``jpeg_tpu_torch/csrc`` with ``nvcc``
    (into ``build/cuda/``) and print the build time and ptxas' resource use.
 3. Hold each kernel against its plain PyTorch version on the card at the
@@ -29,9 +31,19 @@ result):
    must be bit-equal to the plain versions', the two-sweep end table
    (``end_table(cap=12)``: K6' twice) bit-equal to the single sweep's, the
    starts must be the host C++ scanner's wherever it accepts every band,
-   and a truncated middle band must fail the check.  K6' (the capped and
-   resumed walkers) is held against its plain version on every byte of the
-   image stream at caps 4 and 12, every live walker resumed.
+   and a truncated middle band must fail the check.  Then the redesigned
+   kernels at their edges, bit-equal to the plain versions: K7 and K8, in
+   the form their plan picks and in both forms, at nb in {0, 1, k - 1, k,
+   k + 1, 3k + 5, D, D + 1, D + k + 1} (k = ``CHASE_JUMP``, D =
+   ``CHASE_DIRECT_MAX``; starts = the host C++ starts), chain starts past
+   P, a band whose chain meets ERR at its first step or mid-band, and 64
+   chains on one buffer; K6 on a buffer
+   longer than ``n_bytes``, a one-block stream, tile boundaries inside
+   zero-run chains, 2.9 KB blocks at L = 1024 (walks past the halo read
+   global memory), and K6-K8 on the d = 24 stream of BASELINE (3) and an
+   adversarial L = 576 stream.  K6' (the capped and resumed walkers) is
+   held against its plain version on every byte of the image stream at
+   caps 4 and 12, every live walker resumed.
 4. Drive the main path, ``compress_ycbcr`` -> ``decompress_to_ycbcr``
    (host C++ boundary scan), at 2048x2048 and 3840x2160 (qtable, DCT,
    dct_size 8, block_size 2) with every kernel's launch count reset just
@@ -87,6 +99,12 @@ result):
    2048x2048; K5, K9 and their plain versions (mean of 50 launches) and
    ``_unit_groups``; encode and decode of BASELINE configurations (2), (3),
    (4a) and (4b); encode with ``enc="tables"`` against ``"lv"``, in turns;
+   K8's device kernels on both main-path streams, and K7 / K8 in both
+   forms at nb = D / 2, D, 2D and 4D on prefixes of the 2048x2048 stream
+   (where the plan's choice between them shows); the work K6's walks need
+   on the 2048x2048 stream (units walked, and the sum over warps of the
+   slowest lane's units with one walker per thread and with refilled
+   lanes, modelled);
    the two-sweep end table at caps 8, 12 and 20 against the single sweep
    on both main-path streams, and the device kernels of one call of each
    end table and each ``encode_rows`` (torch.profiler); and the step
@@ -107,6 +125,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -218,6 +237,90 @@ def adversarial_levels(n: int, L: int, seed: int = 1) -> np.ndarray:
     return lv.astype(np.int32)
 
 
+def walk_units(buf, n_bytes: int, L: int):
+    """(P,) int64: the units each byte's K6 walker takes, the one that
+    settles it included (the plain version's step loop,
+    ``kernels.scan_walk_plain``, counting; a walker live at the budget's
+    end took the whole budget)."""
+    P, dev = buf.shape[0], buf.device
+    b = torch.cat([buf.to(torch.int64),
+                   torch.zeros(1, dtype=torch.int64, device=dev)])
+    w16 = (b[:-1] << 8) | b[1:]
+    limit = 8 * n_bytes
+    pos = torch.arange(P, dtype=torch.int64, device=dev) * 8
+    widx = torch.zeros_like(pos)
+    units = torch.zeros_like(pos)
+    live = torch.ones(P, dtype=torch.bool, device=dev)
+    for _ in range(L + L // 15 + 2):
+        if not bool(live.any()):
+            break
+        units += live
+        h = (w16[(pos >> 3).clamp(max=P - 1)] >> (8 - (pos & 7))) & 0xFF
+        run, size = h >> 4, h & 0xF
+        code, chain = size != 0, h == 0xF0
+        settle = ((pos + 8 > limit) | (~code & ~chain)
+                  | (code & ((pos + 8 + size > limit) | (widx + run >= L))))
+        live = live & ~settle
+        pos = torch.where(live, pos + torch.where(code, 8 + size, 8), pos)
+        widx = torch.where(live, widx + torch.where(code, run + 1, 15), widx)
+    return units
+
+
+def warp_max_units(units) -> int:
+    """Sum over warps of the slowest lane's units with one walker per
+    thread and byte, as K6 ran before its lanes were refilled (warp w
+    walks bytes [32w, 32w + 32))."""
+    pad = torch.zeros(-(-units.shape[0] // 32) * 32, dtype=torch.int64,
+                      device=units.device)
+    pad[:units.shape[0]] = units
+    return int(pad.reshape(-1, 32).max(1).values.sum())
+
+
+def refill_rounds(units, tile: int, threads: int, per_round: int):
+    """Rounds of csrc/scan_walk.cu's walker loop each warp runs, modelled
+    on these walks: at the top of a round a warp's idle lanes take its
+    claimed bytes in lane order, and the warp claims the tile's next 32
+    when they run out (warps in order; the card orders them as they come);
+    a walk of u units holds its lane for ceil(u / per_round) rounds, and a
+    warp runs a round while any lane of it walks.  Returns (blocks *
+    threads / 32,) int64."""
+    P, dev = units.shape[0], units.device
+    n_tiles, warps = -(-(P + 2) // tile), threads // 32
+    work = torch.zeros(n_tiles * tile, dtype=torch.int64, device=dev)
+    work[:P] = -(-units // per_round)
+    work = work.reshape(n_tiles, 1, tile).expand(n_tiles, warps, tile)
+    todo = (P - torch.arange(n_tiles, device=dev) * tile).clamp(
+        0, tile)[:, None, None]
+    i64 = dict(dtype=torch.int64, device=dev)
+    left = torch.zeros((n_tiles, warps, 32), **i64)
+    more = torch.ones((n_tiles, warps, 32), dtype=torch.bool, device=dev)
+    chunk = torch.zeros((n_tiles, warps), **i64)
+    used = torch.full((n_tiles, warps), 32, **i64)
+    cursor = torch.zeros((n_tiles, 1), **i64)
+    rounds = torch.zeros((n_tiles, warps), **i64)
+    while True:
+        idle = (left == 0) & more
+        rank = torch.cumsum(idle, 2) - idle.to(torch.int64)
+        n_idle = idle.sum(2)
+        take = torch.minimum(n_idle, 32 - used)
+        need = n_idle > take
+        fresh = cursor + 32 * (torch.cumsum(need, 1) - need.to(torch.int64))
+        cursor = cursor + 32 * need.sum(1, keepdim=True)
+        q = torch.where(rank < take[..., None],
+                        (chunk + used)[..., None] + rank,
+                        fresh[..., None] + rank - take[..., None])
+        chunk = torch.where(need, fresh, chunk)
+        used = torch.where(need, n_idle - take, used + take)
+        got = idle & (q < todo)
+        left = torch.where(got, work.gather(2, q.clamp(max=tile - 1)), left)
+        more = more & (got | ~idle)
+        busy = (left > 0).any(2)
+        if not bool(busy.any()):
+            return rounds.reshape(-1)
+        rounds += busy
+        left = (left - 1).clamp(min=0)
+
+
 def time_ms(fn, reps: int) -> float:
     """Mean CUDA-event time of ``fn`` over ``reps`` calls after a warm-up."""
     fn()
@@ -291,8 +394,10 @@ def bound(nbytes: float, flops: float = 0.0):
 
 
 def max_diff(a, b) -> int:
-    """Largest elementwise |a - b| of two integer tensors, as an int."""
-    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+    """Largest elementwise |a - b| of two integer tensors, as an int (0
+    for empty ones)."""
+    d = (a.to(torch.int64) - b.to(torch.int64)).abs()
+    return int(d.max()) if d.numel() else 0
 
 
 def nvidia_smi(query: str) -> str:
@@ -314,6 +419,11 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    # The host-free decode's scan_offsets_hybrid warns and returns the host
+    # scanner's starts when the device scan rejects a stream the host
+    # accepts: here that is a failure of K6-K8, not a fallback.
+    warnings.filterwarnings("error", message="device scan rejected",
+                            category=RuntimeWarning)
     try:
         import jpeg_tpu_torch  # noqa: F401
     except ModuleNotFoundError as e:
@@ -442,25 +552,25 @@ def main() -> int:
         return np.cumsum(bb.to(torch.int64).reshape(3, -1).sum(1).cpu()
                          .numpy()).tolist()
 
-    def host_starts(raw: bytes, ends: list):
+    def host_starts(raw: bytes, ends: list, Lh=L, nb=band_blocks):
         """The host C++ scanner's starts of each band, or None where it
         rejects one."""
-        nb = band_blocks
         out, s0 = [], 0
         for e in ends:
             try:
-                out.append(native_codec.scan_offsets(raw[s0:e], nb, L) + s0)
+                out.append(native_codec.scan_offsets(raw[s0:e], nb, Lh)
+                           + s0)
             except (BadStreamError, BadRleCodeError):
                 return None
             s0 = e
         return np.concatenate(out)
 
-    def scan_kernels(label, buf, ends, quiet=False):
+    def scan_kernels(label, buf, ends, quiet=False, L=L, nb=band_blocks):
         """K6-K8 vs their plain versions (bit-equal) on one buffer of three
-        bands, the two-sweep end table (K6' at cap 12) vs the single sweep
-        (bit-equal), and the starts vs the host C++ scanner's.  Returns the
-        device check and the timing closures on these inputs."""
-        n, nb = buf.shape[0], band_blocks
+        bands of nb blocks, the two-sweep end table (K6' at cap 12) vs the
+        single sweep (bit-equal), and the starts vs the host C++ scanner's.
+        Returns the device check and the timing closures on these inputs."""
+        n = buf.shape[0]
         s0s_l = [0] + ends[:-1]
         targets = torch.tensor(ends, dtype=torch.int64, device=dev)
         s0s = torch.tensor(s0s_l, dtype=torch.int64, device=dev)
@@ -482,7 +592,7 @@ def main() -> int:
         }
         for k, v in errs.items():
             scan_err[k] = max(scan_err[k], v)
-        want = host_starts(buf.cpu().numpy().tobytes(), ends)
+        want = host_starts(buf.cpu().numpy().tobytes(), ends, L, nb)
         ok = bool(ok_k.all())
         what = (f"K6-K8 {label}: end table, starts and checks bit-equal to "
                 f"plain; two-sweep end table (cap 12) bit-equal; check {ok} "
@@ -549,6 +659,149 @@ def main() -> int:
     _, ok_api = DS.scan_bands_starts(t_buf, t_ends, band_blocks, L)
     check(not ok and not bool(ok_api), "truncated middle band: check fails")
     results.update(scan_results)
+
+    # The redesigned kernels at their edges: K7 / K8's two forms, the long
+    # one's anchors and fill ranges (jump k), the selection between them,
+    # chain starts past P and chains that meet ERR, 1 to 64 chains; K6's
+    # tiles, halo and reads past the staged bytes.
+    k = K.CHASE_JUMP
+    dmax = K.CHASE_DIRECT_MAX
+
+    def forms(P2, B, nb_f):
+        """K7 / K8's short and long forms at nb_f, whichever the wrappers
+        pick (the kernel takes the short form at nb_f <= k)."""
+        a = -(-nb_f // k)
+        return (("short", K.ChasePlan(0, 0, 0)),
+                ("long", K.ChasePlan(a, P2, B * a)))
+
+    host = host_starts(raw, img_ends)
+    host_b = host.reshape(3, band_blocks)
+    E_img = K.scan_walk(img_buf, img_ends[-1], L)
+    P_img = img_ends[-1]
+    err_img = P_img + 1
+    s0_img = [int(h[0]) for h in host_b]
+    chase_cases = [(f"nb = {nb_e}", E_img, [int(h[nb_e]) for h in host_b],
+                    s0_img, nb_e, [True] * 3, [h[:nb_e] for h in host_b])
+                   for nb_e in (0, 1, k - 1, k, k + 1, 3 * k + 5, dmax,
+                                dmax + 1, dmax + k + 1)]
+    chase_cases.append(("chain starts P, P + 1, P + 7 and 2**40 (past the "
+                        "table)", E_img, [err_img] * 4,
+                        [P_img, P_img + 1, P_img + 7, 1 << 40], 3 * k + 5,
+                        [True] * 4, None))
+    E_first = E_img.clone()
+    E_first[s0_img[1]] = err_img
+    chase_cases.append(("band 1 meets ERR at its first step", E_first,
+                        img_ends, s0_img, band_blocks, [True, False, True],
+                        None))
+    E_mid = E_img.clone()
+    E_mid[int(host_b[2][band_blocks // 2])] = err_img
+    chase_cases.append(("band 2 meets ERR mid-band", E_mid, img_ends, s0_img,
+                        band_blocks, [True, True, False], None))
+    nb64 = 3 * k + 5
+    at64 = [j * (len(host) - nb64) // 64 for j in range(64)]
+    all_starts = np.append(host, P_img)
+    chase_cases.append((
+        "64 chains on one buffer, every other target one byte off", E_img,
+        [int(all_starts[i + nb64]) + j % 2 for j, i in enumerate(at64)],
+        [int(host[i]) for i in at64], nb64, [j % 2 == 0 for j in range(64)],
+        [host[i:i + nb64] if j % 2 == 0 else None
+         for j, i in enumerate(at64)]))
+    for label, E_c, tg, s0c, nb_c, want_ok, want_st in chase_cases:
+        tg_t = torch.tensor(tg, dtype=torch.int64, device=dev)
+        s0_t = torch.tensor(s0c, dtype=torch.int64, device=dev)
+        st_k, ok_k = K.chase_starts_multi(E_c, tg_t, s0_t, nb_c)
+        st_p, ok_p = K.chase_starts_multi_plain(E_c, tg_t, s0_t, nb_c)
+        err8 = max(max_diff(st_k, st_p), max_diff(ok_k, ok_p))
+        err7 = 0
+        for b, (t, s) in enumerate(zip(tg, s0c)):
+            a, o = K.chase_starts(E_c, t, s, nb_c)
+            err7 = max(err7, max_diff(a, st_p[b]), max_diff(o, ok_p[b]))
+        for _, plan in forms(E_c.shape[0], len(tg), nb_c):   # uncounted
+            st_f, ok_f = K._chase(E_c, nb_c, tg_t, s0_t, plan)
+            err8 = max(err8, max_diff(st_f, st_p), max_diff(ok_f, ok_p))
+        for b, (t, s) in enumerate(zip(tg[:3], s0c)):
+            for _, plan in forms(E_c.shape[0], 1, nb_c):
+                a, o = K._chase(E_c, nb_c, t, s, plan)
+                err7 = max(err7, max_diff(a[0], st_p[b]),
+                           max_diff(o[0], ok_p[b]))
+        scan_err["chase_starts_multi"] = max(scan_err["chase_starts_multi"],
+                                             err8)
+        scan_err["chase_starts"] = max(scan_err["chase_starts"], err7)
+        st_np = st_k.cpu().numpy()
+        check(err8 == 0 and err7 == 0 and ok_k.tolist() == want_ok
+              and (want_st is None or all(
+                  w is None or np.array_equal(st_np[b], w)
+                  for b, w in enumerate(want_st))),
+              f"K7 / K8 (k = {k}), {label} (B = {len(tg)}, nb = {nb_c}, "
+              f"{'short' if K.chase_plan(1, 1, nb_c).anchors == 0 else 'long'}"
+              " form): starts and checks bit-equal to plain, in both forms, "
+              "K7 band by band too; "
+              f"checks {ok_k.tolist() if len(tg) <= 4 else sum(want_ok)}"
+              + ("; accepted chains' starts = host C++ starts"
+                 if want_st is not None else ""))
+
+    def walk_edge(label, buf, n, L_e, target, nb_e):
+        """K6 vs its plain version (bit-equal) on one buffer, and K7's
+        starts from byte 0 (nb_e blocks to ``target``) vs the host C++
+        scanner's."""
+        E_k = K.scan_walk(buf, n, L_e)
+        err6 = max_diff(E_k, K.scan_walk_plain(buf, n, L_e))
+        scan_err["scan_walk"] = max(scan_err["scan_walk"], err6)
+        st, ok7 = K.chase_starts(E_k, target, 0, nb_e)
+        want = native_codec.scan_offsets(
+            buf[:target].cpu().numpy().tobytes(), nb_e, L_e)
+        plan = K.scan_walk_plan(buf.shape[0], L_e, sms)
+        check(err6 == 0 and bool(ok7)
+              and np.array_equal(st.cpu().numpy(), want),
+              f"K6 {label} ({buf.shape[0]}-byte buffer, n_bytes {n}, "
+              f"L = {L_e}; tiles of {plan.tile}, halo {plan.halo}): end "
+              "table bit-equal to plain; K7's starts = host C++ starts")
+        return plan
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rng_e = np.random.default_rng(11)
+    tail = torch.from_numpy(rng_e.integers(0, 256, 4099, dtype=np.uint8))
+    walk_edge("on a buffer 4,099 garbage bytes longer than n_bytes",
+              torch.cat([img_buf, tail.to(dev)]), P_img, L, img_ends[0],
+              band_blocks)
+    one = native_codec.encode_levels(adversarial_levels(6, L, seed=5)[1:2])
+    walk_edge("on a stream of one block, shorter than a tile",
+              torch.frombuffer(bytearray(one), dtype=torch.uint8).to(dev),
+              len(one), L, len(one), 1)
+    lv_ch = np.zeros((3000, 576), np.int32)
+    lv_ch[:, 575] = rng_e.integers(1, 300, 3000)
+    chains = native_codec.encode_levels(lv_ch)
+    ch_buf = torch.frombuffer(bytearray(chains), dtype=torch.uint8).to(dev)
+    plan = walk_edge("on 38-byte zero-run chains (L = 576)", ch_buf,
+                     len(chains), 576, len(chains), 3000)
+    inside = [t for t in range(plan.tile, len(chains), plan.tile)
+              if chains[t - 1] == chains[t] == 0xF0]
+    check(len(inside) > 0, f"  {len(inside)} of its tile boundaries lie "
+          "inside a zero-run chain")
+    lv_far = np.where(rng_e.random((60, 1024)) < 0.9, 16383, -1)
+    far = native_codec.encode_levels(lv_far.astype(np.int32))
+    plan = walk_edge("on 2.9 KB blocks (L = 1024): walks past the halo read "
+                     "global memory",
+                     torch.frombuffer(bytearray(far), dtype=torch.uint8).to(
+                         dev), len(far), 1024, len(far), 60)
+    check(K.walk_span_bytes(1024) > plan.halo,
+          f"  a walk spans up to {K.walk_span_bytes(1024)} bytes, the halo "
+          f"{plan.halo}")
+    cfg24 = Configuration(width=w, height=h, block_size=4, dct_size=24,
+                          quantization=QuantizationMethod("divide",
+                                                          divisor=1000))
+    lv24 = BandEncoder(cfg24).to(dev)(img_t).cpu().numpy()
+    for label, lvs in ((f"d = 24 stream (BASELINE (3), {h}x{w})", lv24),
+                       ("adversarial L = 576 stream",
+                        adversarial_levels(3 * 1200, 576, seed=4).reshape(
+                            3, 1200, 576))):
+        bands24 = [native_codec.encode_levels(lvs[b]) for b in range(3)]
+        buf24 = torch.frombuffer(bytearray(b"".join(bands24)),
+                                 dtype=torch.uint8).to(dev)
+        ends24 = np.cumsum([len(x) for x in bands24]).tolist()
+        ok, _ = scan_kernels(label, buf24, ends24, L=lvs.shape[2],
+                             nb=lvs.shape[1])
+        check(ok, f"K6+K8 accept the {label} ({ends24[-1]} bytes)")
 
     def resume_kernels(buf, n_b):
         """K6' vs its plain version (bit-equal) on every byte of a stream at
@@ -1062,6 +1315,62 @@ def main() -> int:
     log(f"  _unit_groups (the tables K9 reads, torch ops): "
         f"{time_ms(unit_groups_fn, 50):.4f} ms (N={n_blocks}, L={L})  "
         f"[{card}]")
+
+    log("  -- K8's device kernels on the main-path streams; K7 / K8 in both "
+        "forms around CHASE_DIRECT_MAX (mean of 50 launches)")
+    for (h, w), (blob, _) in runs.items():
+        cfg, data = container.read_data(blob)
+        s, n = main_streams[(h, w)]
+        nbh = cfg.num_blocks
+        ends_h = np.cumsum([len(data.y), len(data.cb), len(data.cr)]).tolist()
+        tg = torch.tensor(ends_h, dtype=torch.int64, device=dev)
+        s0 = torch.tensor([0] + ends_h[:-1], dtype=torch.int64, device=dev)
+        E_h = K.scan_walk(s, n, L)
+        jumps = K.chase_plan(E_h.shape[0], 3, nbh).anchors - 1
+        log(f"  K8 {h}x{w}, nb = {nbh} ({jumps} serial jumps of E^"
+            f"{K.CHASE_JUMP}, then {K.CHASE_JUMP} fill steps a band): "
+            + device_kernels(lambda: K.chase_starts_multi(E_h, tg, s0, nbh))
+            + f"  [{card}]")
+    # The selection: three-band prefixes of the 2048x2048 stream, nb blocks
+    # a band, both forms (uncounted launches).
+    cfg, data = container.read_data(runs[SIZES[0]][0])
+    bands0 = [data.y, data.cb, data.cr]
+    st0 = [native_codec.scan_offsets(b, cfg.num_blocks, L) for b in bands0]
+    for nb_x in (dmax // 2, dmax, 2 * dmax, 4 * dmax):
+        parts = [b[:int(st[nb_x])] for b, st in zip(bands0, st0)]
+        raw_x = b"".join(parts)
+        buf_x = torch.frombuffer(bytearray(raw_x), dtype=torch.uint8).to(dev)
+        ends_x = np.cumsum([len(p) for p in parts]).tolist()
+        tg_x = torch.tensor(ends_x, dtype=torch.int64, device=dev)
+        s0_x = torch.tensor([0] + ends_x[:-1], dtype=torch.int64, device=dev)
+        E_x = K.scan_walk(buf_x, len(raw_x), L)
+        row = []
+        for name, plan in forms(E_x.shape[0], 3, nb_x):
+            ms8 = time_ms(lambda: K._chase(E_x, nb_x, tg_x, s0_x, plan), 50)
+            plan7 = forms(E_x.shape[0], 1, nb_x)[name == "long"][1]
+            ms7 = time_ms(lambda: K._chase(E_x, nb_x, ends_x[0], 0, plan7),
+                          50)
+            row.append(f"{name} form K8 {ms8:.4f} ms, K7 {ms7:.4f} ms")
+        pick = "short" if K.chase_plan(1, 3, nb_x).anchors == 0 else "long"
+        log(f"  nb = {nb_x} ({len(raw_x)} bytes): " + "; ".join(row)
+            + f" (the plan takes the {pick} form)  [{card}]")
+    s, n = main_streams[SIZES[0]]
+    plan0 = K.scan_walk_plan(n, L, sms)
+    units = walk_units(s, n, L)
+    before = warp_max_units(units)
+    total_units = int(units.sum())
+    log(f"  K6 work on the {SIZES[0][0]}x{SIZES[0][1]} stream ({n} bytes, "
+        f"{n} walkers): {total_units} units walked, {int(units.max())} at "
+        f"most; sum over warps of the slowest lane's units: {before} with "
+        f"one walker per thread ({total_units / (32 * before):.3f} of "
+        "the lane slots walk)")
+    for pr in (1, K.SCAN_UNITS_PER_ROUND):
+        rounds = int(refill_rounds(units, plan0.tile, K.SCAN_THREADS,
+                                   pr).sum())
+        log(f"    refilled lanes, tiles of {plan0.tile}, rounds of up to {pr} "
+            f"units (modelled): {rounds} warp rounds = {rounds * pr} unit slots "
+            f"({total_units / (32 * rounds * pr):.3f} of the lane slots "
+            "walk)")
 
     log("  -- boundary scan of one band by stream size: pure-Python scanner, "
         "C++ scanner, device scan (K6 + K7, upload and pull included)")

@@ -32,6 +32,7 @@ in its ``launches`` attribute (:func:`launch_counts`).
 from __future__ import annotations
 
 import ctypes
+import functools
 import glob
 import hashlib
 import os
@@ -39,6 +40,7 @@ import shutil
 import subprocess
 import threading
 import time
+from typing import NamedTuple
 
 import torch
 
@@ -73,16 +75,19 @@ _SIGNATURES = {
     "jt_decode_blocks": (_P, _P, _P, _I64, _I32, _I32, _P, _I32, _P),
     # x, op_t, mul, div, mask, n, K, L, out, device, stream
     "jt_encode_blocks": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _P, _I32, _P),
-    # stream bytes, P, limit bits, L, end table, device, stream
-    "jt_scan_walk": (_P, _I64, _I64, _I32, _P, _I32, _P),
+    # stream bytes, P, limit bits, L, tile, halo, end table, device, stream
+    "jt_scan_walk": (_P, _I64, _I64, _I32, _I32, _I32, _P, _I32, _P),
     # stream bytes, P, limit bits, L, q, c0, w0, M, n_live, steps,
     # lengths, bits, indices, device, stream
     "jt_scan_walk_resume": (_P, _I64, _I64, _I32, _P, _P, _P, _I64, _P, _I32,
                             _P, _P, _P, _I32, _P),
-    # end table, P2, target, s0, nb, starts, ok, device, stream
-    "jt_chase": (_P, _I64, _I64, _I64, _I64, _P, _P, _I32, _P),
-    # end table, P2, targets, s0s, B, nb, starts, ok, device, stream
-    "jt_chase_multi": (_P, _I64, _P, _P, _I64, _I64, _P, _P, _I32, _P),
+    # end table, P2, target, s0, nb, jump table, anchors, starts, ok,
+    # device, stream
+    "jt_chase": (_P, _I64, _I64, _I64, _I64, _P, _P, _P, _P, _I32, _P),
+    # end table, P2, targets, s0s, B, nb, jump table, anchors, starts, ok,
+    # device, stream
+    "jt_chase_multi": (_P, _I64, _P, _P, _I64, _I64, _P, _P, _P, _P, _I32,
+                       _P),
 }
 
 
@@ -608,6 +613,63 @@ def scan_walk_plain(stream: torch.Tensor, n_bytes: int,
     return E
 
 
+def _walk_units(L: int) -> int:
+    """The host scanner's unit budget for one block."""
+    return L + L // MAX_RUN + 2
+
+
+# K6's launch (csrc/scan_walk.cu): threads per block and units a lane walks
+# between refills (the kernel's kThreads and kUnitsPerRound), the largest
+# tile and the most bytes staged past one (a walk that reads further goes
+# on from global memory).  On an NVIDIA H100, tiles sized to fill the card
+# in one wave beat fixed ones of 512 to 4096 bytes on both main-path
+# streams.
+SCAN_THREADS = 256
+SCAN_UNITS_PER_ROUND = 4
+SCAN_TILE_MAX = 4096
+SCAN_HALO_MAX = 2048
+# The largest L the scan takes: a walk's bits from its tile's first byte
+# then stay far inside the kernel's int32 positions.
+SCAN_MAX_L = 1 << 20
+
+
+def walk_span_bytes(L: int) -> int:
+    """Bytes, from its start byte on, that one walk can read before it
+    settles: the last of its L + L//15 + 2 headers starts at most
+    (units - 1) * (8 + 15) bits in, and the two-byte window that reads it
+    takes the byte after."""
+    return ((_walk_units(L) - 1) * (8 + MAX_SIZE)) // 8 + 2
+
+
+class ScanWalkPlan(NamedTuple):
+    tile: int        # table entries (and walkers) per thread block
+    halo: int        # bytes staged past the tile, a multiple of 16
+
+
+def _ceil16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def scan_walk_plan(P: int, L: int, sms: int) -> ScanWalkPlan:
+    """How K6 cuts a P-byte stream on a card of ``sms`` multiprocessors:
+    the kernel runs one block per tile of the (P + 2)-entry table.  Tiles
+    fill the card in one wave of ``2048 // SCAN_THREADS`` blocks each, but
+    are no smaller than ``SCAN_THREADS`` bytes (a walk per lane) nor larger
+    than ``SCAN_TILE_MAX``.  Each tile is staged with a halo of
+    ``walk_span_bytes(L)`` rounded up to 16 bytes, at most
+    ``SCAN_HALO_MAX``."""
+    halo = min(_ceil16(walk_span_bytes(L)), SCAN_HALO_MAX)
+    wave = sms * (2048 // SCAN_THREADS)
+    tile = min(SCAN_TILE_MAX,
+               max(SCAN_THREADS, _ceil16(-(-(P + 2) // wave))))
+    return ScanWalkPlan(tile, halo)
+
+
+@functools.lru_cache(maxsize=None)
+def _multiprocessors(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def scan_walk(stream: torch.Tensor, n_bytes: int, L: int) -> torch.Tensor:
     """(P,) uint8 stream buffer -> (P + 2,) int32 end table E: E[q] is the
     end byte of the block that starts at byte q, or ERR = P + 1 where the
@@ -619,20 +681,16 @@ def scan_walk(stream: torch.Tensor, n_bytes: int, L: int) -> torch.Tensor:
         raise ValueError(f"n_bytes must be in [0, {P}], got {n_bytes}")
     if P + 2 >= 1 << 31:
         raise ValueError(f"a {P}-byte stream overflows the int32 end table")
-    if L < 1:
-        raise ValueError(f"L must be >= 1, got {L}")
+    if not 1 <= L <= SCAN_MAX_L:
+        raise ValueError(f"L must be in [1, {SCAN_MAX_L}], got {L}")
     if not _on_cuda(stream):
         return scan_walk_plain(stream, n_bytes, L)
+    plan = scan_walk_plan(P, L, _multiprocessors(stream.device))
     E = torch.empty(P + 2, dtype=torch.int32, device=stream.device)
     _launch("jt_scan_walk", stream.device, stream.data_ptr(), P,
-            8 * n_bytes, L, E.data_ptr())
+            8 * n_bytes, L, plan.tile, plan.halo, E.data_ptr())
     _count(scan_walk)
     return E
-
-
-def _walk_units(L: int) -> int:
-    """The host scanner's unit budget for one block."""
-    return L + L // MAX_RUN + 2
 
 
 def scan_walk_resume_plain(stream: torch.Tensor, n_bytes: int, L: int,
@@ -786,6 +844,59 @@ def _check_chase(E: torch.Tensor, nb: int) -> None:
         raise ValueError(f"nb must be in [0, 2**31), got {nb}")
 
 
+# K7 / K8's jump k, the starts between two anchors of the long form
+# (csrc/chase.cu's kJump): 16 beat 8, 32 and 64 on the 2048x2048 and
+# 3840x2160 main-path streams on an NVIDIA H100.  Chains of at most
+# CHASE_DIRECT_MAX starts take the short form, one launch that follows E
+# itself: on that card it beat the long form's three launches up to 512
+# starts a band, the two traded places between runs at 1,024, and the long
+# form won from 2,048 on (chip_smoke.py phase 5 times both around the
+# threshold).
+CHASE_JUMP = 16
+CHASE_DIRECT_MAX = 1024
+
+
+class ChasePlan(NamedTuple):
+    anchors: int         # anchors per band, ceil(nb / k); 0: the short form
+    table_entries: int   # int32 scratch for the jump table (0: none)
+    anchor_entries: int  # int32 scratch for the anchors (0: none)
+
+
+def chase_plan(P2: int, B: int, nb: int) -> ChasePlan:
+    """How K7 / K8 chase B bands of nb starts over a P2-entry table.  Up
+    to ``CHASE_DIRECT_MAX`` starts: the short form, one block per band
+    following E, with no scratch.  Longer: a jump table of E^k over all P2
+    entries (k = ``CHASE_JUMP``), ceil(nb / k) - 1 serial jump steps per
+    band, then one thread per anchor fills up to k starts."""
+    if nb <= CHASE_DIRECT_MAX:
+        return ChasePlan(0, 0, 0)
+    anchors = -(-nb // CHASE_JUMP)
+    return ChasePlan(anchors, P2, B * anchors)
+
+
+def _chase(E: torch.Tensor, nb: int, targets, s0s, plan: ChasePlan):
+    """Launch K7 / K8 on E's device with the wrapper's plan: ``targets``
+    and ``s0s`` are (B,) int64 tensors (K8) or ints (K7, one band).
+    Returns ((B, nb) int64 starts, (B,) bool ok); the wrappers count the
+    launch."""
+    multi = isinstance(targets, torch.Tensor)
+    B = targets.shape[0] if multi else 1
+    P2 = E.shape[0]
+    dev = E.device
+    starts = torch.empty((B, nb), dtype=torch.int64, device=dev)
+    ok = torch.empty(B, dtype=torch.bool, device=dev)
+    scratch = [torch.empty(n, dtype=torch.int32, device=dev) if n else None
+               for n in (plan.table_entries, plan.anchor_entries)]
+    args = (nb, *(None if t is None else t.data_ptr() for t in scratch),
+            starts.data_ptr(), ok.data_ptr())
+    if multi:
+        _launch("jt_chase_multi", dev, E.data_ptr(), P2, targets.data_ptr(),
+                s0s.data_ptr(), B, *args)
+    else:
+        _launch("jt_chase", dev, E.data_ptr(), P2, targets, s0s, *args)
+    return starts, ok
+
+
 def chase_starts(E: torch.Tensor, target: int, s0: int, nb: int):
     """(P2,) int32 end table -> ((nb,) int64 starts, 0-d bool ok): the
     chain s0, E[s0], E[E[s0]], ... and whether its end, one step past the
@@ -794,12 +905,9 @@ def chase_starts(E: torch.Tensor, target: int, s0: int, nb: int):
     _check_chase(E, nb)
     if not _on_cuda(E):
         return chase_starts_plain(E, target, s0, nb)
-    starts = torch.empty(nb, dtype=torch.int64, device=E.device)
-    ok = torch.empty((), dtype=torch.bool, device=E.device)
-    _launch("jt_chase", E.device, E.data_ptr(), E.shape[0], target, s0, nb,
-            starts.data_ptr(), ok.data_ptr())
+    starts, ok = _chase(E, nb, target, s0, chase_plan(E.shape[0], 1, nb))
     _count(chase_starts)
-    return starts, ok
+    return starts.reshape(nb), ok.reshape(())
 
 
 def chase_starts_multi(E: torch.Tensor, targets: torch.Tensor,
@@ -815,13 +923,11 @@ def chase_starts_multi(E: torch.Tensor, targets: torch.Tensor,
         raise ValueError(f"{B} targets but {s0s.shape[0]} chain starts")
     if not _on_cuda(E, targets, s0s):
         return chase_starts_multi_plain(E, targets, s0s, nb)
-    starts = torch.empty((B, nb), dtype=torch.int64, device=E.device)
-    ok = torch.empty(B, dtype=torch.bool, device=E.device)
-    if B:
-        _launch("jt_chase_multi", E.device, E.data_ptr(), E.shape[0],
-                targets.data_ptr(), s0s.data_ptr(), B, nb, starts.data_ptr(),
-                ok.data_ptr())
-        _count(chase_starts_multi)
+    if not B:
+        return (torch.empty((0, nb), dtype=torch.int64, device=E.device),
+                torch.empty(0, dtype=torch.bool, device=E.device))
+    starts, ok = _chase(E, nb, targets, s0s, chase_plan(E.shape[0], B, nb))
+    _count(chase_starts_multi)
     return starts, ok
 
 
