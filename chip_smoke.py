@@ -20,7 +20,20 @@ result):
    image's own levels and on adversarial random levels: K1-K3 and K9 (the
    tables encoder, on ``_unit_groups``' tables) must be bit-equal, K9's
    rows also to K1's, K4 equal except +-1 at provable ties
-   (``utils/parity.py``).
+   (``utils/parity.py``).  K2 also at its design's edges, bit-equal to its
+   plain version (and to the host C++ stream where its rows are K1's): all
+   1-byte (EOB-only) blocks, one block, N = 49,153, blocks of exactly 4W
+   bytes, 1- to 4W-byte blocks, caps below and above the stream's length.
+   K4 also against the exact (f64) sums of its f32 inputs, with its plain
+   version, on the image's levels, on BASELINE (3)'s d = 24 levels (N =
+   1,452, K = 576, M = 9,216) and at its design's edges: M = 64, 1,024,
+   1,600 and 9,216, and M = 81 at d = 3 (K = 9: its 4-byte copies and
+   single-byte stores), at N = 1, 63, 65 and 49,153 (a zero block and
+   all-saturating blocks among them), and levels up to 4,095 ... 16,383
+   times 1,024 (dequantized values about 2**22 and 2**24); its largest
+   error before rounding (``decode_blocks_sums``) is printed at d = 8, 24
+   and 3 in units of 2**-23 sum|terms|, beside the full-f32 cuBLAS
+   product's.
    K5 runs on the image's pixel blocks with the DFT operator, at d = 8
    (N = 196,608: the three bands at bs 1; four quantizers) and at d = 24
    (N = 2,700, L = 576): equal to its plain version and to an f64 numpy
@@ -109,9 +122,14 @@ result):
    on both main-path streams, and the device kernels of one call of each
    end table and each ``encode_rows`` (torch.profiler); and the step
    pipeline's band round trip against ``compress_band`` /
-   ``decompress_band``.  Each kernel's line
-   in the JSON carries its bound: the larger of its bytes over the card's
-   memory rate and its f32 operations over its f32 rate.
+   ``decompress_band``.  Also the encode by stage (upload, transform,
+   phase-1 stats, "K1 + K2", download, pack) and the device kernels of one
+   ``deposit_rows`` call (at most two).  Each kernel's line in the JSON
+   carries its bound: the larger of its bytes over the card's memory rate
+   and its operations over the f32 rate, or for the products of K4 and K5
+   the TF32 tensor-core rate; and for K4 (main path and d = 24, its own
+   line) and K5 ``library_ms``, a full-f32 ``torch.matmul`` of the same
+   operands.
 
 The last three lines of standard output are a JSON object of per-kernel
 results, the card's ``name, power.limit`` and
@@ -160,13 +178,29 @@ KERNEL_INFO = {   # wrapper name -> (source, Pallas kernel it replaces)
 MAIN_PATH = ("encode_stream_rows", "deposit_rows", "decode_stream_blocks",
              "decode_blocks")
 HOST_FREE_PATH = ("scan_walk", "chase_starts", "chase_starts_multi")
+# K4 at d = 24 (BASELINE (3)) has its own line in the kernels JSON.
+K4_D24 = "decode_blocks[d=24]"
 TABLES_PATH = ("encode_stream_rows_tables", "deposit_rows")
 TWO_SWEEP_CAPS = (8, 12, 20)
 # The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): the
 # bound of a kernel is the larger of its bytes over the memory rate and its
-# f32 operations over the f32 (non-tensor-core) rate.
+# operations over the card's peak rate for them: the f32 (non-tensor-core)
+# rate, except for the f32 products of K4 and K5, which the TF32 tensor
+# cores can do in f32 accuracy (csrc/tc_product.cuh), so the least time the
+# card could take for them is at the TF32 dense rate.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
+# K4's checks at its design's edges: output widths M (bs 1, 4, 5 at d 8,
+# bs 4 at d 24, and bs 3 at d 3, whose K = 9 and M = 81 take the kernel's
+# 4-byte copies and single-byte stores), block counts N, and the |levels|
+# of the near-2**22 and near-2**24 dequantized values (times a divisor of
+# 1024).
+K4_EDGE_M = ((64, 1, 8), (1024, 4, 8), (1600, 5, 8), (9216, 4, 24),
+             (81, 3, 3))
+K4_EDGE_N = (1, 63, 65, 49153)
+K4_BIG_LEVELS = (4095, 4096, 4097, 16383)
+EPS32 = 2.0 ** -23
 MUTANTS = 24
 CROSSOVER_BYTES = (256, 1 << 10, 4 << 10, 16 << 10, 64 << 10, 256 << 10)
 MANY = 8
@@ -384,12 +418,12 @@ def device_kernels(fn, top: int = 6) -> str:
         f"{name[:48]} x{n} {us:.1f} us" for name, (us, n) in head))
 
 
-def bound(nbytes: float, flops: float = 0.0):
+def bound(nbytes: float, flops: float = 0.0, rate: float = F32_FLOP_PER_S):
     """(ms, side): the least time the card could take to move ``nbytes``
-    (each input read once, each output written once) and do ``flops`` f32
-    operations, and which of the two sets it."""
+    (each input read once, each output written once) and do ``flops``
+    operations at ``rate`` per second, and which of the two sets it."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t_ops = flops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -398,6 +432,53 @@ def max_diff(a, b) -> int:
     for empty ones)."""
     d = (a.to(torch.int64) - b.to(torch.int64)).abs()
     return int(d.max()) if d.numel() else 0
+
+
+def k4_against_exact(K, full_f32_matmul, lv, op_t, deq, chunk: int = 2048):
+    """K4 (``decode_blocks``) and its plain version on (N, K) levels against
+    the exact sums of their f32 inputs (f64 on the card): each must equal
+    the exact sums' rounding except by 1 where the exact sum lies within
+    (K + 16) 2**-23 sum|terms| of a .5 tie, and the two likewise each other.
+    Returns max |K4 - plain|, the flips against the plain version and the
+    exact rounding, the tie positions, and the largest error before the
+    rounding of K4's sums (``decode_blocks_sums``) and of the plain
+    version's full-f32 product, in units of 2**-23 sum|terms|."""
+    got = K.decode_blocks(lv, op_t, deq)
+    plain = K.decode_blocks_plain(lv, op_t, deq)
+    sums = K.decode_blocks_sums(lv, op_t, deq)
+    op64 = op_t.double()
+    aop = op64.abs()
+    tol = (lv.shape[1] + 16) * EPS32
+    out = dict(err=max_diff(got, plain), flips_plain=0, flips_exact=0,
+               ties=0, margin=0.0, margin_plain=0.0)
+    for i in range(0, lv.shape[0], chunk):
+        a32 = (lv[i:i + chunk] * deq).to(torch.float32)
+        a64 = a32.double()
+        v = a64 @ op64
+        terms = a64.abs() @ aop
+        ties = (v - v.floor() - 0.5).abs() <= tol * terms
+        ref = torch.round(v).clamp(0, 255)
+        g, p = got[i:i + chunk].double(), plain[i:i + chunk].double()
+        for x, y, what in ((g, ref, "K4 vs exact"), (p, ref, "plain vs exact"),
+                           (g, p, "K4 vs plain")):
+            d = (x - y).abs()
+            if bool(((d > 0) & ~ties).any()) or bool((d > 1).any()):
+                raise AssertionError(f"tie contract violated, {what}: "
+                                     f"{int(((d > 0) & ~ties).sum())} "
+                                     "non-tie flips")
+        out["flips_plain"] += int((g != p).sum())
+        out["flips_exact"] += int((g != ref).sum())
+        out["ties"] += int(ties.sum())
+        with full_f32_matmul():
+            mm = torch.matmul(a32, op_t)
+        pos = terms > 0
+        if bool(pos.any()):
+            scale = terms[pos] * EPS32
+            out["margin"] = max(out["margin"], float(
+                ((sums[i:i + chunk].double() - v).abs()[pos] / scale).max()))
+            out["margin_plain"] = max(out["margin_plain"], float(
+                ((mm.double() - v).abs()[pos] / scale).max()))
+    return out, got
 
 
 def nvidia_smi(query: str) -> str:
@@ -444,6 +525,7 @@ def main() -> int:
     from jpeg_tpu_torch.ops import transform as T
     from jpeg_tpu_torch.ops.blocks import blockify, crop, deblockify
     from jpeg_tpu_torch.utils import parity
+    from jpeg_tpu_torch.utils.device import full_f32_matmul
 
     dev = torch.device("cuda", 0)
     card = nvidia_smi("name,power.limit")
@@ -542,6 +624,50 @@ def main() -> int:
     adv_buf, adv_bb, _ = entropy_kernels(
         "adversarial",
         torch.from_numpy(adversarial_levels(n_blocks, L)).to(dev))
+
+    # K2 at its design's edges (tiles of K.DEPOSIT_TILE_BLOCKS blocks, words
+    # assembled across blocks, edge bytes, the zero tail): bit-equal to the
+    # plain version, and where the rows are K1's at a cap of the stream's
+    # length, to the host C++ encoder's stream.
+    def k2_edge(label, lv=None, rows=None, bb=None, caps=(0,)):
+        if lv is not None:
+            W_e = -(-int(DC.block_bytes_of(lv).max()) // 4)
+            rows, bb = K.encode_stream_rows(lv, W_e)
+            host = native_codec.encode_levels(lv.cpu().numpy())
+        total_e = int(bb.to(torch.int64).sum())
+        for dc in caps:
+            cap_e = max(total_e + dc, 0)
+            got = K.deposit_rows(rows, bb, cap_e)
+            ok = torch.equal(got, K.deposit_rows_plain(rows, bb, cap_e))
+            if lv is not None and cap_e == total_e:
+                ok = ok and got.cpu().numpy().tobytes() == host
+            check(ok, f"K2 {label} (N = {rows.shape[0]}, W = {rows.shape[1]}"
+                  f", cap = total {dc:+d} = {cap_e}): bit-equal to plain"
+                  + (" and the host C++ stream" if lv is not None
+                     and cap_e == total_e else ""))
+
+    rng_k2 = np.random.default_rng(17)
+    k2_edge("all 1-byte (EOB-only) blocks",
+            lv=torch.zeros((n_blocks, L), dtype=torch.int32, device=dev),
+            caps=(0, -1, -3, 1, 4))
+    k2_edge("one block", lv=torch.from_numpy(
+        adversarial_levels(6, L, seed=5)[1:2]).to(dev), caps=(0, -1, 3))
+    k2_edge(f"N = {n_blocks + 1}, not a multiple of the tile",
+            lv=torch.from_numpy(adversarial_levels(n_blocks + 1, L,
+                                                   seed=6)).to(dev),
+            caps=(0, -5, -(n_blocks // 2), 1, 2, 3, 1001))
+    for n_e, W_e in ((K.DEPOSIT_TILE_BLOCKS - 1, 3), (n_blocks + 7, 9)):
+        rows_e = torch.from_numpy(rng_k2.integers(
+            -2 ** 31, 2 ** 31, (n_e, W_e)).astype(np.int32)).to(dev)
+        full = torch.full((n_e,), 4 * W_e, dtype=torch.int32, device=dev)
+        k2_edge(f"blocks of exactly 4W = {4 * W_e} bytes", rows=rows_e,
+                bb=full, caps=(0, -1, -2, -3, 1, 2, 3))
+        mixed = rng_k2.integers(1, 4 * W_e + 1, n_e)
+        mixed[rng_k2.random(n_e) < 0.3] = 4 * W_e
+        mixed[rng_k2.random(n_e) < 0.3] = 1
+        k2_edge("1- to 4W-byte blocks, random rows", rows=rows_e,
+                bb=torch.from_numpy(mixed.astype(np.int32)).to(dev),
+                caps=(0, -1, -7, 1, 3, 4, 4099))
 
     # Bound again in scan_kernels' own scope for its timing closures:
     # main() reassigns nb in phase 4.
@@ -866,11 +992,99 @@ def main() -> int:
           f"ties (max |diff| vs plain {k4_err}, "
           f"{int((got != want_p).sum())} tie flips)")
     M4 = dec.op_t.shape[1]
-    results["decode_blocks"] = dict(
-        err=k4_err, fn=lambda: K.decode_blocks(flat, dec.op_t, dec.deq),
-        plain=lambda: K.decode_blocks_plain(flat, dec.op_t, dec.deq),
-        nbytes=4 * n_blocks * L + n_blocks * M4 + 4 * dec.op_t.numel()
-        + 4 * dec.deq.numel(), flops=2 * n_blocks * L * M4)
+
+    def k4_entry(lv_t, dec_t, err):
+        """K4's timing closures and counts on (N, K) levels and a decoder,
+        with the full-f32 ``torch.matmul`` of the same operands."""
+        a32 = (lv_t * dec_t.deq).to(torch.float32)
+        n_t, K_t = lv_t.shape
+        M_t = dec_t.op_t.shape[1]
+
+        def library():
+            with full_f32_matmul():
+                return torch.matmul(a32, dec_t.op_t)
+
+        return dict(
+            err=err, fn=lambda: K.decode_blocks(lv_t, dec_t.op_t, dec_t.deq),
+            plain=lambda: K.decode_blocks_plain(lv_t, dec_t.op_t, dec_t.deq),
+            library=library, rate=TF32_FLOP_PER_S,
+            shape=f"N={n_t}, K={K_t}, M={M_t}",
+            nbytes=4 * n_t * K_t + n_t * M_t + 4 * dec_t.op_t.numel()
+            + 4 * dec_t.deq.numel(), flops=2 * n_t * K_t * M_t)
+
+    # K4's error before rounding, against the exact sums of its inputs.
+    margins = {d_e: [] for _, _, d_e in K4_EDGE_M}
+    k4_x, _ = k4_against_exact(K, full_f32_matmul, flat, dec.op_t, dec.deq)
+    margins[8].append((k4_x["margin"], k4_x["margin_plain"]))
+    check(True, f"K4 on the image's levels vs their exact sums: "
+          f"{k4_x['flips_exact']} tie flips ({k4_x['ties']} tie positions)")
+    results["decode_blocks"] = k4_entry(flat, dec, k4_err)
+    dec24 = BandDecoder(cfg24).to(dev)
+    flat24 = torch.from_numpy(lv24.reshape(-1, 576)).to(dev)
+    k4_24, _ = k4_against_exact(K, full_f32_matmul, flat24, dec24.op_t,
+                                dec24.deq)
+    margins[24].append((k4_24["margin"], k4_24["margin_plain"]))
+    check(True, f"K4 at d = 24 on BASELINE (3)'s levels (N = "
+          f"{flat24.shape[0]}, K = 576, M = {dec24.op_t.shape[1]}): equal "
+          f"to plain and to the exact sums' rounding except +-1 at ties "
+          f"({k4_24['flips_plain']} flips vs plain, {k4_24['flips_exact']} "
+          f"vs exact, {k4_24['ties']} tie positions)")
+    results[K4_D24] = k4_entry(flat24, dec24, k4_24["err"])
+    # The design's edges: output widths, ragged row tiles, a zero block,
+    # saturating blocks, dequantized values near 2**22 and 2**24.
+    rng_k4 = np.random.default_rng(13)
+    for M_e, bs_e, d_e in K4_EDGE_M:
+        cfg_e = Configuration(
+            width=64, height=64, block_size=bs_e, dct_size=d_e,
+            quantization=(QuantizationMethod("qtable") if d_e == 8 else
+                          QuantizationMethod("divide", divisor=1000)))
+        dec_e = BandDecoder(cfg_e).to(dev)
+        L_e = d_e * d_e
+        check(dec_e.op_t.shape[1] == M_e, f"K4 edge decoder: M = {M_e}")
+        for N_e in K4_EDGE_N:
+            lv_e = np.where(rng_k4.random((N_e, L_e)) < 0.3,
+                            rng_k4.integers(-40, 41, (N_e, L_e)), 0)
+            lv_e[:, 0] = rng_k4.integers(-60, 61, N_e)
+            sat = N_e >= 3
+            if sat:
+                lv_e[0] = 0                              # an all-zero block
+                lv_e[1:3] = 0
+                lv_e[1, 0], lv_e[2, 0] = 16383, -16383   # all-saturating
+            lv_t = torch.from_numpy(lv_e.astype(np.int32)).to(dev)
+            r, got = k4_against_exact(K, full_f32_matmul, lv_t, dec_e.op_t,
+                                      dec_e.deq)
+            margins[d_e].append((r["margin"], r["margin_plain"]))
+            k4_err = max(k4_err, r["err"])
+            check(not sat or (bool((got[1] == 255).all())
+                              and bool((got[2] == 0).all())),
+                  f"K4 M = {M_e}, N = {N_e}: equal to plain and to the exact "
+                  f"sums' rounding except +-1 at ties ({r['flips_plain']} / "
+                  f"{r['flips_exact']} flips, {r['ties']} ties)"
+                  + ("; saturating blocks all 255 and all 0" if sat else ""))
+        big = torch.full((L_e,), 1024, dtype=torch.int32, device=dev)
+        for hi in K4_BIG_LEVELS:
+            lv_t = torch.from_numpy(rng_k4.integers(
+                -hi, hi + 1, (257, L_e)).astype(np.int32)).to(dev)
+            r, _ = k4_against_exact(K, full_f32_matmul, lv_t, dec_e.op_t, big)
+            margins[d_e].append((r["margin"], r["margin_plain"]))
+            k4_err = max(k4_err, r["err"])
+            check(True, f"K4 M = {M_e}, |lv| <= {hi} times 1024 (up to "
+                  f"{hi * 1024}, 2**22 = {1 << 22}, 2**24 = {1 << 24}): "
+                  f"within the contract ({r['flips_plain']} / "
+                  f"{r['flips_exact']} flips)")
+    results["decode_blocks"]["err"] = k4_err
+    k4_margin = {}
+    for d_m, ms in margins.items():
+        K_m = d_m * d_m
+        k4_margin[d_m] = max(m for m, _ in ms)
+        b_m = 1.003 * (min(K_m, 8) + 2) + 0.51 * -(-K_m // 8) + 6.01
+        log(f"  K4 error before rounding at d = {d_m} (K = {K_m}), the most "
+            f"over {len(ms)} cases, in units of 2**-23 sum|terms|: "
+            f"{k4_margin[d_m]:.3f} (full-f32 cuBLAS "
+            f"{max(p for _, p in ms):.3f}); the split's derived bound "
+            f"B({K_m}) = {b_m:.1f}, the contract's {K_m + 16}")
+    results["decode_blocks"]["error_eps32"] = k4_margin[8]
+    results[K4_D24]["error_eps32"] = k4_margin[24]
 
     def k5_closures(vec, op_t, vecs):
         return (lambda: K.encode_blocks(vec, op_t, *vecs),
@@ -902,8 +1116,14 @@ def main() -> int:
             if d5 == 8 and qname == "none":
                 fn, plain_fn = k5_closures(vec, op_t, vecs)
                 N5, L5 = vec.shape
+
+                def k5_library(vec=vec, op_t=op_t):
+                    with full_f32_matmul():
+                        return torch.matmul(vec, op_t)
+
                 results["encode_blocks"] = dict(
                     fn=fn, plain=plain_fn, plain_reps=50,
+                    library=k5_library, rate=TF32_FLOP_PER_S,
                     shape=f"N={N5}, L={L5}",
                     nbytes=8 * N5 * L5 + 4 * op_t.numel()
                     + 4 * sum(v.numel() for v in vecs),
@@ -1063,6 +1283,7 @@ def main() -> int:
         "decompress_to_ycbcr, scan='host' and scan='device')")
     baseline_runs = {}
     k5_launches = 0
+    k4_d24_launches = 0
     for label, (h, w), bs, d, transform, (qname, qparams) in BASELINE:
         cfg = Configuration(width=w, height=h, block_size=bs, dct_size=d,
                             transform=transform,
@@ -1079,6 +1300,8 @@ def main() -> int:
             f"x); launch counts {counts_c}")
         if label == "4b":
             k5_launches += counts_c["encode_blocks"]
+        if label == "3":
+            k4_d24_launches = counts_c["decode_blocks"]
         check((counts_c["encode_blocks"] > 0) == (label == "4b")
               and (counts_c["decode_blocks"] > 0) == (label != "5")
               and all(counts_c[n] > 0 for n in MAIN_PATH if n !=
@@ -1234,6 +1457,48 @@ def main() -> int:
                 lambda: decompress_to_ycbcr(blob, scan=scan), REPS)
             log(f"  decode {h}x{w} scan={scan}: {dec_ms:.3f} ms median of "
                 f"{REPS} = {mp / dec_ms * 1e3:.1f} MP/s  [{card}]")
+    log("  -- encode by stage (each stage ended by a device sync, host "
+        f"clock, median of {REPS})")
+    for (h, w), (blob, _) in runs.items():
+        cfg = cfg_for(h, w)
+        im = images[(h, w)]
+        stages = {}
+
+        def stage(name, fn):
+            def run():
+                out = fn()
+                torch.cuda.synchronize()
+                return out
+            out = run()
+            times = []
+            for _ in range(REPS):
+                t0 = time.perf_counter()
+                run()
+                times.append((time.perf_counter() - t0) * 1e3)
+            stages[name] = float(np.median(times))
+            return out
+
+        img_d = stage("upload image", lambda: torch.from_numpy(im).to(dev))
+        benc = BandEncoder(cfg).to(dev)
+        lv_s = stage("transform", lambda: benc(img_d.permute(2, 0, 1)))
+        flat_s = lv_s.reshape(-1, lv_s.shape[-1])
+
+        def stats():
+            bb = DC.block_bytes_of(flat_s).to(torch.int64)
+            st = torch.stack([bb.max(), bb.sum(), flat_s.abs().max()])
+            return [int(x) for x in st.cpu()]
+
+        max_bb, total_s, _ = stage("phase-1 stats + pull", stats)
+        buf_s = stage("K1 + K2", lambda: DC.encode_stream_sized(
+            flat_s, -(-max_bb // 4), total_s)[0])
+        raw_s = stage("download stream", lambda: buf_s.cpu().numpy().tobytes())
+        _, data_s = container.read_data(blob)
+        stage("container pack", lambda: container.generate_data(cfg, data_s))
+        check(raw_s == b"".join((data_s.y, data_s.cb, data_s.cr)),
+              f"{h}x{w}: the staged encode's stream is the container's")
+        log(f"  {h}x{w}: " + ", ".join(f"{k} {v:.3f}"
+                                       for k, v in stages.items())
+            + f"; sum {sum(stages.values()):.3f} ms  [{card}]")
     log("  -- host-free decode by stage (each stage ended by a device "
         f"sync, host clock, median of {REPS})")
     staged = [(f"{h}x{w}", blob) for (h, w), (blob, _) in runs.items()]
@@ -1293,25 +1558,33 @@ def main() -> int:
     launches_of["encode_stream_rows_tables"] = counts_tb[
         "encode_stream_rows_tables"]
     launches_of["scan_walk_resume"] = counts_2s["scan_walk_resume"]
+    launches_of[K4_D24] = k4_d24_launches
     kernels = []
     for name, r in results.items():
         ms = time_ms(r["fn"], 50)
         plain_ms = time_ms(r["plain"], r.get("plain_reps", 5))
-        bound_ms, bound_by = bound(r["nbytes"], r.get("flops", 0))
+        # One PyTorch call computes K4's and K5's product without their
+        # epilogues: a full-f32 torch.matmul of the same operands.  None
+        # computes the others (a bit writer, a byte-offset scatter, a bit
+        # parser, a walker, a pointer chase): library_ms is null.
+        library_ms = time_ms(r["library"], 10) if "library" in r else None
+        bound_ms, bound_by = bound(r["nbytes"], r.get("flops", 0),
+                                   r.get("rate", F32_FLOP_PER_S))
         shape = r.get("shape", f"N={n_blocks}, L={L}, stream {img_ends[-1]} "
                       "bytes")
-        log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-            f"{bound_ms:.4f} ms by {bound_by} ({shape})  [{card}]")
-        src, repl = KERNEL_INFO[name]
+        log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            + (f"torch.matmul {library_ms:.4f} ms, " if library_ms else "")
+            + f"bound {bound_ms:.4f} ms by {bound_by} ({shape})  [{card}]")
+        src, repl = KERNEL_INFO[name.split("[")[0]]
         err = scan_err[name] if name in scan_err else r["err"]
-        # No single PyTorch call computes any of these functions (a bit
-        # writer, a byte-offset scatter, a bit parser, a product with a
-        # rounding epilogue, a walker, a pointer chase): library_ms is null.
-        kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": repl, "launches": launches_of[name],
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": bound_ms, "bound_by": bound_by,
-                        "library_ms": None})
+        entry = {"name": name, "route": "cuda", "source": src,
+                 "replaces": repl, "launches": launches_of[name],
+                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": bound_ms, "bound_by": bound_by,
+                 "library_ms": library_ms}
+        if "error_eps32" in r:
+            entry["error_eps32"] = r["error_eps32"]
+        kernels.append(entry)
     log(f"  _unit_groups (the tables K9 reads, torch ops): "
         f"{time_ms(unit_groups_fn, 50):.4f} ms (N={n_blocks}, L={L})  "
         f"[{card}]")
@@ -1461,6 +1734,16 @@ def main() -> int:
         log(f"  {hw[0]}x{hw[1]} stream, {n} bytes: " + "; ".join(parts)
             + f"  [{card}]")
     log("  -- device kernels of one call (torch.profiler CUDA events)")
+    rows_k2, bb_k2 = K.encode_stream_rows(
+        flat, -(-int(DC.block_bytes_of(flat).max()) // 4))
+    total_k2 = int(bb_k2.to(torch.int64).sum())
+    k2_kernels = device_kernels(lambda: K.deposit_rows(rows_k2, bb_k2,
+                                                       total_k2))
+    log(f"  deposit_rows, {SIZES[0][0]}x{SIZES[0][1]} ({total_k2} bytes): "
+        f"{k2_kernels}  [{card}]")
+    check(int(k2_kernels.split()[0]) <= 2,
+          "one deposit_rows call runs at most two device kernels (no "
+          "memset, cast or cumsum)")
     s, n = main_streams[SIZES[0]]
     W = -(-int(DC.block_bytes_of(flat).max()) // 4)
     for label, fn in (

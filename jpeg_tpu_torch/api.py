@@ -8,10 +8,12 @@ entropy coding (the content-sized two-phase encode);
 ``decompress_to_ycbcr`` / ``decompress_to_device`` / ``decompress_many``
 find the block boundaries with the host C++ scan or the device scan
 (``scan=``) and decode on the device.  Containers are the same bytes as the
-JAX package's.  Every function takes an explicit ``device``: ``"cuda"`` (the
-default) runs the hand-written kernels and raises without a GPU; ``"cpu"``
-runs their plain PyTorch versions.  Every function also takes ``dtype``:
-``None`` (f32, the default) or ``torch.float64``, the parity mode, which
+JAX package's.  Positional parameters are the reference's, in its order;
+``device``, ``scan`` and ``enc`` are keyword-only after them.  Every function
+takes ``device``: ``"cuda"`` (the default) runs the hand-written kernels and
+raises without a GPU; ``"cpu"`` runs their plain PyTorch versions.  Every
+function also takes ``dtype``: ``None`` (f32, the default) or float64
+(``torch.float64``, ``np.float64`` or ``"float64"``), the parity mode, which
 reproduces the reference bit for bit through the reference-order host
 transforms (for small images: they loop over blocks).
 """
@@ -34,8 +36,8 @@ from .ops.band import BandDecoder, BandEncoder
 from .utils.device import caller_stream, resolve_device
 
 
-def compress_band(a, config: Configuration, device="cuda",
-                  dtype=None) -> bytes:
+def compress_band(a, config: Configuration, dtype=None, *,
+                  device="cuda") -> bytes:
     """(H, W) band -> entropy-coded bytestream: the coefficient transform on
     ``device``, the entropy coding on the host."""
     dev = resolve_device(device)
@@ -44,8 +46,8 @@ def compress_band(a, config: Configuration, device="cuda",
     return entropy.encode_levels(levels.cpu().numpy())
 
 
-def decompress_band(data: bytes, config: Configuration, device="cuda",
-                    dtype=None) -> np.ndarray:
+def decompress_band(data: bytes, config: Configuration, dtype=None, *,
+                    device="cuda") -> np.ndarray:
     """Band bytestream -> (H, W) int32 reconstruction: the entropy decode on
     the host, the coefficient decode on ``device``."""
     dev = resolve_device(device)
@@ -120,8 +122,8 @@ def _finish_compress(state: _Encode) -> bytes:
     return container.generate_data(state.config, CompressedData(*bands))
 
 
-def compress_ycbcr(ycbcr: np.ndarray, config: Configuration,
-                   device="cuda", dtype=None, enc: str = "lv") -> bytes:
+def compress_ycbcr(ycbcr: np.ndarray, config: Configuration, dtype=None, *,
+                   device="cuda", enc: str = "lv") -> bytes:
     """(H, W, 3) uint8 YCbCr image -> container bytes.
 
     All three bands (including luma) go through the same subsample path,
@@ -140,8 +142,8 @@ def compress_ycbcr(ycbcr: np.ndarray, config: Configuration,
         ycbcr, config, resolve_device(device), dtype, enc))
 
 
-def compress_many(images, config: Configuration, device="cuda",
-                  depth: int = 2, dtype=None, enc: str = "lv") -> list:
+def compress_many(images, config: Configuration, dtype=None,
+                  depth: int = 2, *, device="cuda", enc: str = "lv") -> list:
     """Pipelined encode of an iterable of (H, W, 3) YCbCr images.
 
     Keeps up to ``depth`` images in flight: image i's stream is pulled and
@@ -188,8 +190,8 @@ def compress_many(images, config: Configuration, device="cuda",
 # Decode
 # ---------------------------------------------------------------------------
 
-def decompress_to_ycbcr(bytestream: bytes, device="cuda",
-                        scan: str = "auto", dtype=None) -> np.ndarray:
+def decompress_to_ycbcr(bytestream: bytes, dtype=None, *, device="cuda",
+                        scan: str = "auto") -> np.ndarray:
     """Container bytes -> (H, W, 3) uint8 YCbCr image.
 
     The block boundaries come from the host's serial boundary scan (C++,
@@ -202,8 +204,8 @@ def decompress_to_ycbcr(bytestream: bytes, device="cuda",
         bytestream, resolve_device(device), scan, dtype)))
 
 
-def decompress_to_device(bytestream: bytes, device="cuda",
-                         scan: str = "auto", dtype=None) -> torch.Tensor:
+def decompress_to_device(bytestream: bytes, dtype=None, *, device="cuda",
+                         scan: str = "auto") -> torch.Tensor:
     """Container bytes -> (3, H, W) uint8 planes as a tensor on ``device``,
     not pulled to the host: for consumers whose next stage runs on the
     device.  ``.cpu().numpy().transpose(1, 2, 0)`` gives
@@ -212,8 +214,8 @@ def decompress_to_device(bytestream: bytes, device="cuda",
         bytestream, resolve_device(device), scan, dtype))
 
 
-def decompress_many(blobs, device="cuda", scan: str = "auto",
-                    depth: int = 2, dtype=None) -> list:
+def decompress_many(blobs, dtype=None, depth: int = 2, *, device="cuda",
+                    scan: str = "auto") -> list:
     """Pipelined decode of an iterable of containers: image i's check and
     plane pull run on a worker thread while the caller's thread scans and
     launches image i+1.  Results are identical to per-image
@@ -273,8 +275,15 @@ def _foreign_decode(config: Configuration, streams, dev: torch.device,
     (K6, then K8), K3 at its starts and K4, all launched before the scan's
     check is known (K3 reads zeros past the stream, so garbage starts are
     safe).  Returns a resolver that reads the check: planes when it holds,
-    else :func:`_device_scan_rejected`'s error."""
+    else :func:`_device_scan_rejected`'s error.
+
+    Every block is at least one byte (an EOB padded to a byte), so a band
+    shorter than ``num_blocks`` bytes is rejected before anything is sized
+    from the header's geometry: a forged header cannot make the decode
+    allocate for it."""
     nb, L = config.num_blocks, config.dct_size ** 2
+    if any(len(s) < nb for s in streams):
+        _device_scan_rejected(config, streams)
     decoder = BandDecoder(config, dtype).to(dev)
     stream = DC.upload_stream(b"".join(streams), dev)
     ends = np.cumsum([len(s) for s in streams])
@@ -328,7 +337,7 @@ def _host_scan_decompress(config: Configuration, streams,
 class Jpeg:
     """Image-level codec (reference pipeline/__init__.py:98-124)."""
 
-    def __init__(self, config: Configuration, device="cuda", dtype=None,
+    def __init__(self, config: Configuration, dtype=None, *, device="cuda",
                  enc: str = "lv"):
         self.config = config
         self.device = device
@@ -342,8 +351,8 @@ class Jpeg:
                               enc=self.enc)
 
     @staticmethod
-    def decompress(bytestream: bytes, device="cuda", scan: str = "auto",
-                   dtype=None):
+    def decompress(bytestream: bytes, dtype=None, *, device="cuda",
+                   scan: str = "auto"):
         """Decompress container bytes to a PIL YCbCr image (or an array if
         PIL is unavailable)."""
         arr = decompress_to_ycbcr(bytestream, device=device, scan=scan,

@@ -6,55 +6,111 @@
 // What it computes: out[n, m] = clamp(rint(sum_k f32(lv[n,k] * deq[k]) *
 // op_t[k, m]), 0, 255) as uint8, for (N, K) int32 levels, a (K,) int32
 // dequantizer and the (K, M) f32 combined decode operator (M = (d*bs)^2, so
-// the product also performs the nearest-neighbour inflate).  The
-// dequantize product is exact in int32 and in f32 (|lv| <= 16383 and the
-// largest multiplier keeps it below 2**24 for the qtable).  Round is
-// rintf: half to even, as jnp.round and torch.round; roundf would round
-// halves away from zero.  The sum runs in full f32 with fused
-// multiply-adds in k order; there is no TF32 or other reduced precision.
-// Its order differs from other implementations, so results agree with them
-// only up to the +-1-at-provable-ties contract (jpeg_tpu_torch/utils/
-// parity.py).
+// the product also performs the nearest-neighbour inflate).  The dequantize
+// product wraps in int32 and converts to f32 round-to-nearest, as
+// `(levels * deq).to(torch.float32)` does; it is exact (below 2**24) for the
+// qtable and for divisors up to 1024 at |lv| <= 16383.  Round is rintf:
+// half to even, as jnp.round and torch.round.  The sum's order differs from
+// other implementations, so results agree with them up to the
+// +-1-at-provable-ties contract (jpeg_tpu_torch/utils/parity.py).
 //
-// What bounds it on this card: 2*N*K*M flops (1.6 GFLOP for a 4 MP image,
-// K = 64, M = 256) against 4*N*K bytes in and N*M bytes out, 64 flops per
-// byte.  The f32 SIMT ridge of an H100 is about 20 flops per byte (67
-// TFLOP/s over 3.35 TB/s, data-sheet figures), so the FMA rate bounds it.
+// What bounds it on this card: 2*N*K*M flops against 4*N*K bytes of levels
+// in and N*M pixels out.  At the main path's K = 64, M = 256 (a 2048x2048
+// image: 1.6 GFLOP, 25 MB) that is 0.0075 ms of device memory (3.35 TB/s)
+// against 0.0033 ms at the 495 TFLOP/s TF32 tensor-core rate, so bytes
+// bound it; at d = 24 (K = 576, M = 9,216: 15.4 GFLOP, 13 MB) the flops do,
+// 0.031 ms.  The f32 SIMT rate (67 TFLOP/s) would bound it at 0.024 ms on
+// the main path and 0.23 ms at d = 24; the earlier SIMT design
+// (tiled_product.cuh, now K5's only) reached 26 % of that rate and lost to
+// cuBLAS's f32 product at d = 24.
 //
-// What the design does about it: the shared tiled product
-// (tiled_product.cuh: 64 blocks x 64 pixels per thread block, a 4x4
-// register tile per thread), with the dequantize fused into the A-tile load
-// and round/clamp/uint8 fused into the store, so no f32 intermediate
-// reaches device memory and the output is 1 byte per pixel.  The TPU's
+// What the design does about it: the product runs on the TF32 tensor cores
+// with f32 accuracy (tc_product.cuh: two TF32 pieces of each operand, three
+// mma.sync per k8 step, the step's sum reset and added in f32 registers;
+// the derived error bound there is B(K) * 2^-23 * sum|terms|, B(64) = 20.1
+// and B(576) = 52.8, inside the contract's (K + 16)).  The levels and the
+// operator are staged by cp.async through a 3-stage shared-memory ring; the
+// dequantize and the split are fused into the fragment loads, round, clamp
+// and uint8 into the epilogue, which writes 16 pixels per store.  The TPU's
 // 128-lane block packing (kron(I_P, W) operators) and pr-major panels were
 // MXU and relayout artifacts and are gone: the operator is taken unpacked.
-#include "tiled_product.cuh"
+#include <mutex>
+
+#include "tc_product.cuh"
 
 namespace {
 
-struct DequantLoad {
-  const int32_t* __restrict__ lv;
+struct DequantA {
   const int32_t* __restrict__ deq;
   int K;
-  __device__ float operator()(int64_t r, int k) const {
-    return static_cast<float>(lv[r * K + k] * deq[k]);
+  __device__ float operator()(uint32_t lv, int k) const {
+    const uint32_t q = k < K ? static_cast<uint32_t>(__ldg(deq + k)) : 0u;
+    return static_cast<float>(static_cast<int32_t>(lv * q));
   }
 };
 
-struct PixelStore {
-  uint8_t* __restrict__ out;
-  int M;
-  __device__ void operator()(int64_t r, int c, float acc) const {
-    const float p = fminf(fmaxf(rintf(acc), 0.f), 255.f);
-    out[r * M + c] = static_cast<uint8_t>(p);
+struct PixelEpi {
+  using Out = uint8_t;
+  __device__ uint8_t operator()(int64_t, int, float acc) const {
+    return static_cast<uint8_t>(fminf(fmaxf(rintf(acc), 0.f), 255.f));
   }
 };
 
-__global__ void __launch_bounds__(jt::kTileThreads) decode_blocks_kernel(
-    const int32_t* __restrict__ lv, const int32_t* __restrict__ deq,
-    const float* __restrict__ opt, int64_t n, int K, int M,
-    uint8_t* __restrict__ out) {
-  jt::tiled_product(DequantLoad{lv, deq, K}, opt, n, K, M, PixelStore{out, M});
+// The f32 sums themselves, before the rounding (for measuring the error of
+// the split product against an exact reference; not on any codec path).
+struct SumEpi {
+  using Out = float;
+  __device__ float operator()(int64_t, int, float acc) const { return acc; }
+};
+
+template <bool kVec, class Epi>
+__global__ void __launch_bounds__(jt::tc::kThreads, 2)
+    decode_blocks_kernel(const int32_t* __restrict__ lv,
+                         const int32_t* __restrict__ deq,
+                         const float* __restrict__ opt, int64_t n, int K,
+                         int M, typename Epi::Out* __restrict__ out,
+                         bool vec_store) {
+  jt::tc::tc_product<kVec>(reinterpret_cast<const uint32_t*>(lv), opt, n, K,
+                           M, DequantA{deq, K}, Epi{}, out, vec_store);
+}
+
+// The kernel's opt-in to more than 48 KB of dynamic shared memory, once per
+// device and instantiation.
+template <bool kVec, class Epi>
+cudaError_t opt_in(int device) {
+  constexpr int kDevices = 64;
+  static std::once_flag once[kDevices];
+  static cudaError_t err[kDevices];
+  if (device < 0 || device >= kDevices) return cudaErrorInvalidDevice;
+  std::call_once(once[device], [device] {
+    err[device] = cudaFuncSetAttribute(
+        decode_blocks_kernel<kVec, Epi>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, jt::tc::kSmemBytes);
+  });
+  return err[device];
+}
+
+template <class Epi>
+int launch(const void* levels, const void* deq, const void* op_t, int64_t n,
+           int32_t K, int32_t M, void* out, int32_t device, void* stream) {
+  cudaSetDevice(device);
+  unsigned blocks;
+  if (!jt::tc::tc_grid(n, M, &blocks))
+    return static_cast<int>(cudaErrorInvalidValue);
+  using Out = typename Epi::Out;
+  const bool vec_store = jt::tc::tc_vec_stores<Out>(out, M);
+  const bool vec_loads = jt::tc::tc_vec_loads(levels, op_t, K, M);
+  const cudaError_t err = vec_loads ? opt_in<true, Epi>(device)
+                                    : opt_in<false, Epi>(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto* kernel = vec_loads ? decode_blocks_kernel<true, Epi>
+                           : decode_blocks_kernel<false, Epi>;
+  kernel<<<blocks, jt::tc::kThreads, jt::tc::kSmemBytes,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(levels), static_cast<const int32_t*>(deq),
+      static_cast<const float*>(op_t), n, K, M, static_cast<Out*>(out),
+      vec_store);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -63,13 +119,13 @@ JT_API int jt_decode_blocks(const void* levels, const void* deq,
                             const void* op_t, int64_t n, int32_t K,
                             int32_t M, void* out, int32_t device,
                             void* stream) {
-  cudaSetDevice(device);
-  dim3 grid;
-  if (!jt::tiled_grid(n, M, &grid))
-    return static_cast<int>(cudaErrorInvalidValue);
-  decode_blocks_kernel<<<grid, jt::kTileThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(levels), static_cast<const int32_t*>(deq),
-      static_cast<const float*>(op_t), n, K, M, static_cast<uint8_t*>(out));
-  return static_cast<int>(cudaGetLastError());
+  return launch<PixelEpi>(levels, deq, op_t, n, K, M, out, device, stream);
+}
+
+// K4's product without its epilogue: out is (N, M) f32.
+JT_API int jt_decode_blocks_sums(const void* levels, const void* deq,
+                                 const void* op_t, int64_t n, int32_t K,
+                                 int32_t M, void* out, int32_t device,
+                                 void* stream) {
+  return launch<SumEpi>(levels, deq, op_t, n, K, M, out, device, stream);
 }

@@ -1,6 +1,7 @@
-// The tiled SIMT f32 product shared by K4 (decode_blocks.cu) and K5
-// (encode_blocks.cu): out[n, m] = epilogue(n, m, sum_k a(n, k) * op_t[k, m])
-// for an (N, K) left operand read through a load functor and a (K, M) f32
+// The tiled SIMT f32 product of K5 (encode_blocks.cu), its only user since
+// K4 moved to the tensor-core product (tc_product.cuh), which K5 is to move
+// onto next: out[n, m] = epilogue(n, m, sum_k a(n, k) * op_t[k, m]) for an
+// (N, K) left operand read through a load functor and a (K, M) f32
 // operator.
 //
 // A classic shared-memory tiled product: 64 rows x 64 columns per thread

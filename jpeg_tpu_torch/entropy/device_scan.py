@@ -157,15 +157,18 @@ def scan_offsets_device(data: bytes, num_blocks: int, L: int,
                         device="cuda"):
     """Run the device scan on one band's bytes.
 
-    Returns ``(starts int32 ndarray, ok bool)``.  The trivial cases are the
-    host scanners'; everything else the kernels decide.  Does NOT raise on
+    Returns ``(starts int32 ndarray, ok bool)``; the starts mean something
+    only when ok.  The trivial cases are the host scanners'; everything
+    else the kernels decide.  A stream shorter than ``num_blocks`` bytes
+    (every block is at least one byte) fails before anything is sized from
+    ``num_blocks`` or uploaded.  Does NOT raise on
     a malformed stream: :func:`scan_offsets_hybrid` reruns the host scanner
     for its error."""
     n = len(data)
     if num_blocks == 0:
         return np.zeros(0, np.int32), n == 0
-    if n == 0:
-        return np.zeros(num_blocks, np.int32), False
+    if n < num_blocks:
+        return np.zeros(0, np.int32), False
     stream = upload_stream(data, resolve_device(device))
     starts, ok = scan_table_and_starts(stream, n, num_blocks, L)
     return starts.cpu().numpy().astype(np.int32), bool(ok)

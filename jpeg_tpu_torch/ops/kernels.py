@@ -67,12 +67,14 @@ _SIGNATURES = {
     "jt_encode_rows": (_P, _I64, _I32, _I32, _P, _P, _I32, _P),
     # cbits, vhi, vlo, n, L + 1, W, rows, device, stream
     "jt_encode_tables": (_P, _P, _P, _I64, _I32, _I32, _P, _I32, _P),
-    # rows, blk_bytes, offsets, n, W, out, cap, device, stream
-    "jt_deposit_rows": (_P, _P, _P, _I64, _I32, _P, _I64, _I32, _P),
+    # rows, blk_bytes, n, W, out, cap, tile status scratch, device, stream
+    "jt_deposit_rows": (_P, _P, _I64, _I32, _P, _I64, _P, _I32, _P),
     # stream bytes, nbytes, starts, n, L, out, device, stream
     "jt_decode_stream": (_P, _I64, _P, _I64, _I32, _P, _I32, _P),
     # levels, deq, op_t, n, K, M, out, device, stream
     "jt_decode_blocks": (_P, _P, _P, _I64, _I32, _I32, _P, _I32, _P),
+    # the same, out (N, M) f32: K4's sums before its epilogue
+    "jt_decode_blocks_sums": (_P, _P, _P, _I64, _I32, _I32, _P, _I32, _P),
     # x, op_t, mul, div, mask, n, K, L, out, device, stream
     "jt_encode_blocks": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _P, _I32, _P),
     # stream bytes, P, limit bits, L, tile, halo, end table, device, stream
@@ -374,11 +376,6 @@ def encode_stream_rows_tables(cbits: torch.Tensor, vhi: torch.Tensor,
 # K2: rows + block bytes -> contiguous stream (csrc/compact.cu)
 # ---------------------------------------------------------------------------
 
-def _exclusive_offsets(blk_bytes: torch.Tensor) -> torch.Tensor:
-    bb = blk_bytes.to(torch.int64)
-    return torch.cumsum(bb, 0) - bb
-
-
 def deposit_rows_plain(rows: torch.Tensor, blk_bytes: torch.Tensor,
                        cap: int) -> torch.Tensor:
     """Plain version of K2: every byte's stream position by index
@@ -388,11 +385,17 @@ def deposit_rows_plain(rows: torch.Tensor, blk_bytes: torch.Tensor,
     shifts = torch.tensor([24, 16, 8, 0], dtype=torch.int32, device=dev)
     b = ((rows.unsqueeze(-1) >> shifts) & 0xFF).reshape(n, 4 * W)
     j = torch.arange(4 * W, device=dev)
-    pos = _exclusive_offsets(blk_bytes)[:, None] + j[None, :]
+    bb = blk_bytes.to(torch.int64)
+    pos = (torch.cumsum(bb, 0) - bb)[:, None] + j[None, :]
     keep = (j[None, :] < blk_bytes[:, None].to(torch.int64)) & (pos < cap)
     out = torch.zeros(cap + 1, dtype=torch.uint8, device=dev)  # [cap]: sink
     out[torch.where(keep, pos, cap)] = torch.where(keep, b, 0).to(torch.uint8)
     return out[:cap]
+
+
+# K2's tile: blocks a thread block scans and deposits (csrc/compact.cu's
+# kTileBlocks); the kernel keeps one 64-bit status word a tile.
+DEPOSIT_TILE_BLOCKS = 256
 
 
 def deposit_rows(rows: torch.Tensor, blk_bytes: torch.Tensor,
@@ -400,7 +403,9 @@ def deposit_rows(rows: torch.Tensor, blk_bytes: torch.Tensor,
     """(N, W) int32 rows + (N,) int32 block bytes -> (cap,) uint8 buffer
     whose first ``blk_bytes.sum()`` bytes are the concatenated block
     streams (the rest zero).  Nothing past ``cap`` is written: callers that
-    size ``cap`` check the sum against it."""
+    size ``cap`` check the sum against it.  On the card the kernel takes
+    the prefix sum and writes every byte of the buffer itself (two
+    launches, counted as one)."""
     _check(rows, "rows", torch.int32, 2)
     _check(blk_bytes, "blk_bytes", torch.int32, 1)
     if blk_bytes.shape[0] != rows.shape[0]:
@@ -411,13 +416,15 @@ def deposit_rows(rows: torch.Tensor, blk_bytes: torch.Tensor,
     if not _on_cuda(rows, blk_bytes):
         return deposit_rows_plain(rows, blk_bytes, cap)
     n, W = rows.shape
-    out = torch.zeros(cap, dtype=torch.uint8, device=rows.device)
-    if n and cap:
-        offsets = _exclusive_offsets(blk_bytes)
-        _launch("jt_deposit_rows", rows.device, rows.data_ptr(),
-                blk_bytes.data_ptr(), offsets.data_ptr(), n, W,
-                out.data_ptr(), cap)
-        _count(deposit_rows)
+    if not (n and cap):
+        return torch.zeros(cap, dtype=torch.uint8, device=rows.device)
+    out = torch.empty(cap, dtype=torch.uint8, device=rows.device)
+    status = torch.empty(-(-n // DEPOSIT_TILE_BLOCKS), dtype=torch.int64,
+                         device=rows.device)
+    _launch("jt_deposit_rows", rows.device, rows.data_ptr(),
+            blk_bytes.data_ptr(), n, W, out.data_ptr(), cap,
+            status.data_ptr())
+    _count(deposit_rows)
     return out
 
 
@@ -518,6 +525,29 @@ def decode_blocks(levels: torch.Tensor, op_t: torch.Tensor,
         _launch("jt_decode_blocks", levels.device, levels.data_ptr(),
                 deq.data_ptr(), op_t.data_ptr(), n, K, M, out.data_ptr())
         _count(decode_blocks)
+    return out
+
+
+def decode_blocks_sums(levels: torch.Tensor, op_t: torch.Tensor,
+                       deq: torch.Tensor) -> torch.Tensor:
+    """K4's f32 sums before its round and clamp, (N, M) f32, from the same
+    tensor-core product on CUDA tensors (uncounted: no codec path calls it;
+    ``chip_smoke.py`` measures the product's error with it).  The plain
+    version is the full-f32 product of :func:`decode_blocks_plain`."""
+    _check(levels, "levels", torch.int32, 2)
+    _check(op_t, "op_t", torch.float32, 2)
+    _check(deq, "deq", torch.int32, 1)
+    if op_t.shape[0] != levels.shape[1] or deq.shape[0] != levels.shape[1]:
+        raise ValueError("levels (N, K) needs op_t (K, M) and deq (K,)")
+    if not _on_cuda(levels, op_t, deq):
+        with full_f32_matmul():
+            return torch.matmul((levels * deq).to(torch.float32), op_t)
+    n, M = levels.shape[0], op_t.shape[1]
+    out = torch.empty((n, M), dtype=torch.float32, device=levels.device)
+    if n and M:
+        _launch("jt_decode_blocks_sums", levels.device, levels.data_ptr(),
+                deq.data_ptr(), op_t.data_ptr(), n, levels.shape[1], M,
+                out.data_ptr())
     return out
 
 

@@ -3,6 +3,7 @@ from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import torch
 
 
@@ -27,17 +28,28 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+_FLOAT_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+
 def resolve_dtype(dtype) -> torch.dtype:
-    """The ``dtype`` argument of the public API: ``None`` or
-    ``torch.float32`` for the f32 path, ``torch.float64`` for the f64
-    parity mode (bit parity with the reference; its transforms loop over
-    blocks on the host, so it is for small images)."""
+    """The ``dtype`` argument of the public API: ``None`` or float32 for
+    the f32 path, float64 for the f64 parity mode (bit parity with the
+    reference; its transforms loop over blocks on the host, so it is for
+    small images).  Each may be a torch dtype, or anything ``np.dtype``
+    reads as one (``np.float64``, ``"float64"``), as the reference takes."""
     if dtype is None:
         return torch.float32
-    if dtype in (torch.float32, torch.float64):
-        return dtype
-    raise ValueError(f"dtype must be None, torch.float32 or torch.float64, "
-                     f"got {dtype!r}")
+    if isinstance(dtype, torch.dtype):
+        name = str(dtype).removeprefix("torch.")
+    else:
+        try:
+            name = np.dtype(dtype).name
+        except TypeError:
+            name = None
+    if name not in _FLOAT_DTYPES:
+        raise ValueError(f"dtype must be None, float32 or float64 (a torch "
+                         f"or numpy dtype or its name), got {dtype!r}")
+    return _FLOAT_DTYPES[name]
 
 
 def caller_stream(dev: torch.device):

@@ -176,10 +176,16 @@ def test_parity_batch_apis_and_jpeg():
 def test_dtype_argument_is_checked():
     cfg, _ = _cfgs(*_kwargs(MANIFEST["rounding_none"]))
     img = _synth(cfg.height, cfg.width)
-    for bad in (torch.float16, np.float64, "float64"):
+    for bad in (torch.float16, np.float16, "int32", "half"):
         with pytest.raises(ValueError, match="dtype"):
             jpeg_tpu_torch.compress_ycbcr(img, cfg, device="cpu", dtype=bad)
         with pytest.raises(ValueError, match="dtype"):
             BandDecoder(cfg, bad)
+    # The reference's numpy spellings of the parity mode are accepted.
+    want = jpeg_tpu_torch.compress_ycbcr(img, cfg, device="cpu", dtype=F64)
+    for good in (np.float64, np.dtype("float64"), "float64"):
+        assert BandDecoder(cfg, good).dtype == F64
+        assert jpeg_tpu_torch.compress_ycbcr(img, cfg, good,
+                                             device="cpu") == want
     assert BandEncoder(cfg, torch.float32).branch == \
         BandEncoder(cfg).branch == "sep_pad"

@@ -238,11 +238,11 @@ def test_band_steps_equal_the_band_api(w, h, bs, d, tr, q):
     a = _plane(77, h, w)
     f64 = torch.float64
     blob = steps.compress_band_steps(a, cfg, "cpu", f64)
-    assert blob == jpeg_tpu_torch.compress_band(a, cfg, "cpu", f64)
+    assert blob == jpeg_tpu_torch.compress_band(a, cfg, f64, device="cpu")
     assert blob == jsteps.compress_band_steps(a, jcfg)
     plane = steps.decompress_band_steps(blob, cfg, "cpu", f64)
     np.testing.assert_array_equal(
-        plane, jpeg_tpu_torch.decompress_band(blob, cfg, "cpu", f64))
+        plane, jpeg_tpu_torch.decompress_band(blob, cfg, f64, device="cpu"))
     np.testing.assert_array_equal(plane,
                                   jsteps.decompress_band_steps(blob, jcfg))
     # f32: levels within the tie contract of the f64 reference
@@ -284,8 +284,8 @@ def test_custom_step_registers_sorted():
         a = _plane(3, 16, 16)
         # the spliced step runs in the pipeline, both ways
         blob = steps.compress_band_steps(a, cfg, "cpu", torch.float64)
-        assert blob == jpeg_tpu_torch.compress_band(a, cfg, "cpu",
-                                                    torch.float64)
+        assert blob == jpeg_tpu_torch.compress_band(a, cfg, torch.float64,
+                                                    device="cpu")
     finally:
         steps.step_classes[:] = before
     assert [c.__name__ for c in steps.step_classes] == NAMES
