@@ -36,8 +36,20 @@ result):
    product's.
    K5 runs on the image's pixel blocks with the DFT operator, at d = 8
    (N = 196,608: the three bands at bs 1; four quantizers) and at d = 24
-   (N = 2,700, L = 576): equal to its plain version and to an f64 numpy
-   reference except +-1 at provable ties, the flips counted.
+   (N = 2,700, L = 576), and at its design's edges: d = 3, 8 and 24, N =
+   1, 63, 65, 127, 129 and 196,609 (2,701 at d = 24) around both tiles'
+   row edges, fractional means of 3x3 and 2x2 pixel blocks, x one element
+   off 16-byte alignment in every other case, every quantizer (divisors 3
+   and 1000): equal to its plain version and to an f64 numpy reference
+   except +-1 at provable ties, the flips counted; its largest error
+   before the epilogue (``encode_blocks_sums``) at d = 3, 8 and 24, in
+   units of 2**-23 sum|terms|, must be within the split's bound B(K).
+   K3 also at its design's edges: N = 1, T - 1, T, T + 1 and 49,153 (T
+   its tile) at L = 9, 64 and 576, adversarial, all-EOB and all-+-16383
+   blocks (a tile span over the staged budget), a buffer longer than its
+   stream, and garbage starts (random, descending, P, P + 1, up to P +
+   2**40): bit-equal to its plain version and, where the starts are
+   true, to the levels.
    The boundary-scan kernels K6-K8 run on the image's three-band stream,
    the adversarial levels' stream, 24 single-byte mutations of the image
    stream and pure garbage bytes: the end table, the starts and the checks
@@ -123,13 +135,20 @@ result):
    end table and each ``encode_rows`` (torch.profiler); and the step
    pipeline's band round trip against ``compress_band`` /
    ``decompress_band``.  Also the encode by stage (upload, transform,
-   phase-1 stats, "K1 + K2", download, pack) and the device kernels of one
-   ``deposit_rows`` call (at most two).  Each kernel's line in the JSON
-   carries its bound: the larger of its bytes over the card's memory rate
-   and its operations over the f32 rate, or for the products of K4 and K5
-   the TF32 tensor-core rate; and for K4 (main path and d = 24, its own
+   phase-1 stats, "K1 + K2", download, pack; the main path and (4b), whose
+   transform is K5), the device kernels of one ``deposit_rows`` call (at
+   most two) and of one ``decode_stream_blocks`` call (at most one: no
+   memset), and K3 at tiles of a quarter, a half, twice and four times
+   its plan's on the 2048x2048 and d = 24 streams.  Each kernel's line in
+   the JSON carries its bound: the larger of its bytes over the card's
+   memory rate and its operations over the f32 rate, or for the products
+   of K4 and K5 the TF32 tensor-core rate; and for K4 (main path and d = 24, its own
    line) and K5 ``library_ms``, a full-f32 ``torch.matmul`` of the same
-   operands.
+   operands; their entries also carry ``error_eps32``, and K3's, K4's
+   and K5's one call's device time (``device_ms``: calls captured in a
+   CUDA graph and replayed, since back-to-back wrapper calls include the
+   wrappers' host work).  K5's product is also timed without its epilogue
+   (``encode_blocks_sums``).
 
 The last three lines of standard output are a JSON object of per-kernel
 results, the card's ``name, power.limit`` and
@@ -181,6 +200,9 @@ HOST_FREE_PATH = ("scan_walk", "chase_starts", "chase_starts_multi")
 # K4 at d = 24 (BASELINE (3)) has its own line in the kernels JSON.
 K4_D24 = "decode_blocks[d=24]"
 TABLES_PATH = ("encode_stream_rows_tables", "deposit_rows")
+# Kernels whose line also carries one call's device time (a CUDA graph).
+DEVICE_TIMED = ("decode_stream_blocks", "decode_blocks", "encode_blocks",
+                K4_D24)
 TWO_SWEEP_CAPS = (8, 12, 20)
 # The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): the
 # bound of a kernel is the larger of its bytes over the memory rate and its
@@ -208,6 +230,20 @@ MANY = 8
 K5_CASES = ((8, None, (("none", {}), ("qtable", {}), ("discard", {"keep": 3}),
                        ("divide", {"divisor": 3}))),
             (24, 2700, (("none", {}), ("divide", {"divisor": 1000}))))
+# K5 at its design's edges: (dct_size, block counts N around both tiles'
+# row edges, quantizers; the largest N takes the first two).
+K5_EDGE_N = (1, 63, 65, 127, 129, 196609)
+K5_EDGES = ((3, K5_EDGE_N, (("none", {}), ("divide", {"divisor": 3}),
+                            ("discard", {"keep": 2}),
+                            ("divide", {"divisor": 1000}))),
+            (8, K5_EDGE_N, (("none", {}), ("divide", {"divisor": 3}),
+                            ("qtable", {}), ("discard", {"keep": 3}),
+                            ("divide", {"divisor": 1000}))),
+            (24, K5_EDGE_N[:5] + (2701,),
+             (("none", {}), ("divide", {"divisor": 3}),
+              ("discard", {"keep": 3}), ("divide", {"divisor": 1000}))))
+# K3's edge checks: coefficients per block.
+K3_EDGE_L = (9, 64, 576)
 # BASELINE configurations: label, (height, width), block_size, dct_size,
 # transform, quantizer.  (4b) is the one that reaches K5; (5) decodes by
 # truncation without K4.
@@ -395,10 +431,31 @@ def median_host_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
-def device_kernels(fn, top: int = 6) -> str:
+def graph_ms(fn, calls: int = 20, reps: int = 10):
+    """The device time of one call of ``fn``, without the host work around
+    its launches: ``calls`` calls captured in one CUDA graph, replayed
+    ``reps`` times (CUDA events).  None, with the reason logged, where the
+    capture fails."""
+    try:
+        fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(calls):
+                fn()
+        ms = time_ms(graph.replay, reps) / calls
+        del graph
+        return ms
+    except RuntimeError as e:
+        log(f"  (graph capture failed: {e}; device time not measured)")
+        return None
+
+
+def device_kernels(fn, top: int = 6):
     """The device kernels one call of ``fn`` runs, from torch.profiler's
     CUDA events (not its ``key_averages()``, which counts device time twice):
-    their number, their summed time and the ``top`` longest by name."""
+    (their number, their summed time in us, a line naming the ``top``
+    longest)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -414,8 +471,9 @@ def device_kernels(fn, top: int = 6) -> str:
     total = sum(us for us, _ in agg.values())
     count = sum(n for _, n in agg.values())
     head = sorted(agg.items(), key=lambda kv: -kv[1][0])[:top]
-    return (f"{count} kernels, {total:.1f} us on the device: " + "; ".join(
-        f"{name[:48]} x{n} {us:.1f} us" for name, (us, n) in head))
+    return count, total, (
+        f"{count} kernels, {total:.1f} us on the device: " + "; ".join(
+            f"{name[:48]} x{n} {us:.1f} us" for name, (us, n) in head))
 
 
 def bound(nbytes: float, flops: float = 0.0, rate: float = F32_FLOP_PER_S):
@@ -1091,12 +1149,16 @@ def main() -> int:
                 lambda: K.encode_blocks_plain(vec, op_t, *vecs))
 
     k5_err = 0
-    for d5, n5, quants in K5_CASES:
-        vec = blockify(img_t.to(torch.float32), d5).reshape(-1, d5 * d5)
-        vec = vec[:n5].contiguous()
+    k5_margins = {}      # d -> [(K5's error, the full-f32 product's)]
+
+    def k5_case(label, vec, d5, op, op_t, quants):
+        """K5 on (N, d*d) pixel blocks with each quantizer: equal to its
+        plain version and to the f64 reference except +-1 at provable
+        ties; and its sums before the epilogue (``encode_blocks_sums``)
+        against the exact sums of its f32 inputs, in units of 2**-23
+        sum|terms|, beside the full-f32 cuBLAS product's."""
+        nonlocal k5_err
         vec_np = vec.to(torch.float64).cpu().numpy()
-        op = T.dft_encode_operator(d5)
-        op_t = torch.from_numpy(op.T.astype(np.float32)).contiguous().to(dev)
         for qname, qparams in quants:
             ev = Q.epilogue_vectors(QuantizationMethod(qname, **qparams), d5)
             vecs = [torch.from_numpy(v.astype(np.float32)).to(dev)
@@ -1105,30 +1167,180 @@ def main() -> int:
             plain = K.encode_blocks_plain(vec, op_t, *vecs)
             ref, ties = parity.blocks_reference_and_ties(vec_np, op, *ev)
             g, p = got.cpu().numpy(), plain.cpu().numpy()
-            label = f"K5 d={d5} N={vec.shape[0]} {qname}"
-            parity.assert_tie_equal(g, p, ties, f"{label} vs plain")
-            parity.assert_tie_equal(g, ref, ties, f"{label} vs f64")
+            tag = (f"K5 d={d5} N={vec.shape[0]} {label} {qname} "
+                   f"{qparams or ''}")
+            parity.assert_tie_equal(g, p, ties, f"{tag} vs plain")
+            parity.assert_tie_equal(g, ref, ties, f"{tag} vs f64")
             k5_err = max(k5_err, max_diff(got, plain))
-            check(True, f"{label}: equal to plain and to the f64 reference "
+            check(True, f"{tag}: equal to plain and to the f64 reference "
                   f"except +-1 at ties ({int((g != p).sum())} tie flips vs "
                   f"plain, {int((g != ref).sum())} vs f64, "
                   f"{int(ties.sum())} tie positions)")
-            if d5 == 8 and qname == "none":
-                fn, plain_fn = k5_closures(vec, op_t, vecs)
-                N5, L5 = vec.shape
+        sums = K.encode_blocks_sums(vec, op_t).double()
+        with full_f32_matmul():
+            mm = torch.matmul(vec, op_t).double()
+        o64 = op_t.double()
+        v64 = vec.double()
+        exact, terms = v64 @ o64, v64.abs() @ o64.abs()
+        pos = terms > 0
+        scale = terms[pos] * EPS32
+        k5_margins.setdefault(d5, []).append(
+            (float(((sums - exact).abs()[pos] / scale).max()),
+             float(((mm - exact).abs()[pos] / scale).max())))
 
-                def k5_library(vec=vec, op_t=op_t):
-                    with full_f32_matmul():
-                        return torch.matmul(vec, op_t)
+    for d5, n5, quants in K5_CASES:
+        vec = blockify(img_t.to(torch.float32), d5).reshape(-1, d5 * d5)
+        vec = vec[:n5].contiguous()
+        op = T.dft_encode_operator(d5)
+        op_t = torch.from_numpy(op.T.astype(np.float32)).contiguous().to(dev)
+        k5_case("image blocks", vec, d5, op, op_t, quants)
+        if d5 == 8:
+            ev = Q.epilogue_vectors(QuantizationMethod("none"), d5)
+            vecs = [torch.from_numpy(v.astype(np.float32)).to(dev)
+                    for v in ev]
+            fn, plain_fn = k5_closures(vec, op_t, vecs)
+            N5, L5 = vec.shape
 
-                results["encode_blocks"] = dict(
-                    fn=fn, plain=plain_fn, plain_reps=50,
-                    library=k5_library, rate=TF32_FLOP_PER_S,
-                    shape=f"N={N5}, L={L5}",
-                    nbytes=8 * N5 * L5 + 4 * op_t.numel()
-                    + 4 * sum(v.numel() for v in vecs),
-                    flops=2 * N5 * L5 * L5)
+            def k5_library(vec=vec, op_t=op_t):
+                with full_f32_matmul():
+                    return torch.matmul(vec, op_t)
+
+            k5_product = (lambda vec=vec, op_t=op_t:
+                          K.encode_blocks_sums(vec, op_t))
+            results["encode_blocks"] = dict(
+                fn=fn, plain=plain_fn, plain_reps=50,
+                library=k5_library, rate=TF32_FLOP_PER_S,
+                shape=f"N={N5}, L={L5}",
+                nbytes=8 * N5 * L5 + 4 * op_t.numel()
+                + 4 * sum(v.numel() for v in vecs),
+                flops=2 * N5 * L5 * L5)
+    # K5 at its design's edges: both tiles' row edges (128 x 64 up to 64
+    # coefficients, 64 x 128 above), d = 3 (K = 9: 4-byte copies, element
+    # stores), d = 24; fractional pixel means (3x3 and 2x2 blocks), x one
+    # element off 16-byte alignment in every other case, every quantizer.
+    rng_k5 = np.random.default_rng(19)
+    for d5, ns, quants in K5_EDGES:
+        L5 = d5 * d5
+        op = T.dft_encode_operator(d5)
+        op_t = torch.from_numpy(op.T.astype(np.float32)).contiguous().to(dev)
+        for i, n5 in enumerate(ns):
+            bs5 = 3 if i % 2 == 0 else 2
+            means = (rng_k5.integers(0, 255 * bs5 * bs5 + 1, (n5, L5))
+                     / (bs5 * bs5)).astype(np.float32)
+            vec = torch.from_numpy(means).to(dev)
+            label = f"means of {bs5}x{bs5}"
+            if i % 2 == 1:
+                flat5 = torch.empty(n5 * L5 + 1, dtype=torch.float32,
+                                    device=dev)
+                flat5[1:] = vec.reshape(-1)
+                vec = flat5[1:].view(n5, L5)
+                check(vec.data_ptr() % 16 != 0 and vec.is_contiguous(),
+                      f"K5 d={d5} N={n5}: x one element off 16-byte "
+                      "alignment")
+                label += ", unaligned"
+            k5_case(label, vec, d5, op, op_t,
+                    quants if n5 < 100_000 else quants[:2])
     results["encode_blocks"]["err"] = k5_err
+    k5_margin = {}
+    for d5, ms in sorted(k5_margins.items()):
+        K_m = d5 * d5
+        k5_margin[d5] = max(m for m, _ in ms)
+        b_m = 1.003 * (min(K_m, 8) + 2) + 0.51 * -(-K_m // 8) + 6.01
+        check(k5_margin[d5] <= b_m,
+              f"K5 error before the epilogue at d = {d5} (K = {K_m}), the "
+              f"most over {len(ms)} cases, in units of 2**-23 sum|terms|: "
+              f"{k5_margin[d5]:.3f} (full-f32 cuBLAS "
+              f"{max(p for _, p in ms):.3f}), within the split's derived "
+              f"bound B({K_m}) = {b_m:.1f} (the contract's {K_m + 16})")
+    results["encode_blocks"]["error_eps32"] = k5_margin[8]
+
+    # K3 at its design's edges: tiles of K.decode_stream_plan(L) blocks
+    # (N around a tile), L = 9, 64, 576; adversarial, all-EOB and
+    # all-+-16383 blocks (whose tile spans overflow the staged budget), a
+    # buffer longer than its stream, and the garbage starts of a device
+    # scan whose check failed: bit-equal to the plain version, and to the
+    # levels where the starts are the stream's.
+    rng_k3 = np.random.default_rng(23)
+    k3_err = 0
+
+    def k3_case(label, lv_np, starts_np=None, tail=0):
+        nonlocal k3_err
+        n3, L3 = lv_np.shape
+        raw3 = native_codec.encode_levels(lv_np)
+        true = starts_np is None
+        if true:
+            starts_np = native_codec.scan_offsets(raw3, n3, L3)
+        extra = rng_k3.integers(0, 256, tail, dtype=np.uint8).tobytes()
+        buf3 = torch.frombuffer(bytearray(raw3 + extra),
+                                dtype=torch.uint8).to(dev)
+        st3 = torch.from_numpy(np.ascontiguousarray(
+            starts_np, np.int64)).to(dev)
+        got = K.decode_stream_blocks(buf3, st3, L3)
+        plain = K.decode_stream_blocks_plain(buf3, st3, L3)
+        k3_err = max(k3_err, max_diff(got, plain))
+        want = torch.from_numpy(lv_np).to(dev) if true else plain
+        plan = K.decode_stream_plan(L3)
+        spans = [int(starts_np[min(i + plan.tile, n3) - 1])
+                 - int(starts_np[i]) for i in range(0, n3, plan.tile)]
+        check(torch.equal(got, plain) and torch.equal(got, want),
+              f"K3 {label} (N = {n3}, L = {L3}, {len(raw3)} + {tail} "
+              f"bytes; tiles of {plan.tile}, widest span {max(spans)} + "
+              f"halo {plan.halo} bytes, budget {K.DECODE_SPAN_BYTES}): "
+              "bit-equal to plain" + (" and to the levels" if true else ""))
+        return raw3, max(spans) + plan.halo
+
+    def k3_levels(n3, L3, seed):
+        """``adversarial_levels`` where L has room for its runs, else
+        sparse random levels with bare-EOB and all-+-16383 blocks."""
+        if L3 >= 64:
+            return adversarial_levels(n3, L3, seed=seed)
+        r = np.random.default_rng(seed)
+        lv3 = np.where(r.random((n3, L3)) < 0.3,
+                       r.integers(-16383, 16384, (n3, L3)), 0)
+        lv3[::5] = 0
+        lv3[1::7] = r.choice([-16383, 16383], lv3[1::7].shape)
+        return lv3.astype(np.int32)
+
+    for L3 in K3_EDGE_L:
+        T3 = K.decode_stream_plan(L3).tile
+        for n3 in sorted({1, max(T3 - 1, 1), T3, T3 + 1, 49153}):
+            k3_case("adversarial levels", k3_levels(n3, L3, n3),
+                    tail=37 if n3 == T3 + 1 else 0)
+        k3_case("all-EOB blocks", np.zeros((T3 + 1, L3), np.int32))
+        dense = rng_k3.choice([-16383, 16383], (T3 + 1, L3)).astype(np.int32)
+        _, span3 = k3_case("every coefficient at +-16383", dense)
+        if L3 >= 64:
+            check(span3 > K.DECODE_SPAN_BYTES,
+                  f"  a tile of them spans {span3} bytes, over the "
+                  "budget: its walks read on from global memory")
+        lv3 = k3_levels(2 * T3 + 3, L3, L3)
+        raw3, _ = k3_case("adversarial levels, the garbage cases' stream", lv3)
+        P3 = len(raw3)
+        n3 = lv3.shape[0]
+        for how, st in (
+                ("random", rng_k3.integers(0, P3 + 2, n3)),
+                ("descending", np.sort(rng_k3.integers(0, P3 + 2, n3))[::-1]),
+                ("all P", np.full(n3, P3)), ("all P + 1", np.full(n3, P3 + 1)),
+                ("P to P + 2**40", rng_k3.integers(P3, P3 + (1 << 40), n3))):
+            k3_case(f"garbage starts, {how}", lv3, starts_np=st)
+    results["decode_stream_blocks"]["err"] = max(
+        results["decode_stream_blocks"]["err"], k3_err)
+    img_starts = torch.cumsum(img_bb.to(torch.int64), 0) - img_bb.to(
+        torch.int64)
+    raw24 = b"".join(native_codec.encode_levels(lv24[b]) for b in range(3))
+    n24 = lv24.shape[0] * lv24.shape[1]
+    buf24 = torch.frombuffer(bytearray(raw24), dtype=torch.uint8).to(dev)
+    st24 = torch.from_numpy(native_codec.scan_offsets(raw24, n24, 576).astype(
+        np.int64)).to(dev)
+    check(torch.equal(K.decode_stream_blocks(buf24, st24, 576),
+                      torch.from_numpy(lv24.reshape(n24, 576)).to(dev)),
+          f"K3 on BASELINE (3)'s d = 24 stream ({len(raw24)} bytes): the "
+          "levels")
+    k3_streams = {
+        f"{h}x{w} stream (N = {n_blocks}, L = {L}, {img_ends[-1]} bytes)":
+            (img_buf, img_starts, L),
+        f"d = 24 stream (N = {n24}, L = 576, {len(raw24)} bytes)":
+            (buf24, st24, 576)}
 
     log("== phase 4: main path (compress_ycbcr -> decompress_to_ycbcr)")
     images = {hw: synth_image(*hw) for hw in SIZES}
@@ -1459,9 +1671,13 @@ def main() -> int:
                 f"{REPS} = {mp / dec_ms * 1e3:.1f} MP/s  [{card}]")
     log("  -- encode by stage (each stage ended by a device sync, host "
         f"clock, median of {REPS})")
-    for (h, w), (blob, _) in runs.items():
-        cfg = cfg_for(h, w)
-        im = images[(h, w)]
+    enc_staged = [(f"{h}x{w}", cfg_for(h, w), images[(h, w)], blob)
+                  for (h, w), (blob, _) in runs.items()]
+    enc_staged += [(f"({label}) {h}x{w}", cfg_b, im_b, blob_b)
+                   for (label, h, w), (cfg_b, im_b, blob_b)
+                   in baseline_runs.items()
+                   if label == "4b" and (h, w) == SIZES[0]]
+    for tag, cfg, im, blob in enc_staged:
         stages = {}
 
         def stage(name, fn):
@@ -1495,9 +1711,9 @@ def main() -> int:
         _, data_s = container.read_data(blob)
         stage("container pack", lambda: container.generate_data(cfg, data_s))
         check(raw_s == b"".join((data_s.y, data_s.cb, data_s.cr)),
-              f"{h}x{w}: the staged encode's stream is the container's")
-        log(f"  {h}x{w}: " + ", ".join(f"{k} {v:.3f}"
-                                       for k, v in stages.items())
+              f"{tag}: the staged encode's stream is the container's")
+        log(f"  {tag}: " + ", ".join(f"{k} {v:.3f}"
+                                     for k, v in stages.items())
             + f"; sum {sum(stages.values()):.3f} ms  [{card}]")
     log("  -- host-free decode by stage (each stage ended by a device "
         f"sync, host clock, median of {REPS})")
@@ -1585,6 +1801,9 @@ def main() -> int:
         if "error_eps32" in r:
             entry["error_eps32"] = r["error_eps32"]
         kernels.append(entry)
+    log(f"  encode_blocks' product without its epilogue "
+        f"(encode_blocks_sums, f32 out, uncounted): "
+        f"{time_ms(k5_product, 50):.4f} ms  [{card}]")
     log(f"  _unit_groups (the tables K9 reads, torch ops): "
         f"{time_ms(unit_groups_fn, 50):.4f} ms (N={n_blocks}, L={L})  "
         f"[{card}]")
@@ -1602,7 +1821,8 @@ def main() -> int:
         jumps = K.chase_plan(E_h.shape[0], 3, nbh).anchors - 1
         log(f"  K8 {h}x{w}, nb = {nbh} ({jumps} serial jumps of E^"
             f"{K.CHASE_JUMP}, then {K.CHASE_JUMP} fill steps a band): "
-            + device_kernels(lambda: K.chase_starts_multi(E_h, tg, s0, nbh))
+            + device_kernels(lambda: K.chase_starts_multi(E_h, tg, s0,
+                                                          nbh))[2]
             + f"  [{card}]")
     # The selection: three-band prefixes of the 2048x2048 stream, nb blocks
     # a band, both forms (uncounted launches).
@@ -1737,13 +1957,19 @@ def main() -> int:
     rows_k2, bb_k2 = K.encode_stream_rows(
         flat, -(-int(DC.block_bytes_of(flat).max()) // 4))
     total_k2 = int(bb_k2.to(torch.int64).sum())
-    k2_kernels = device_kernels(lambda: K.deposit_rows(rows_k2, bb_k2,
-                                                       total_k2))
+    k2_count, _, k2_kernels = device_kernels(
+        lambda: K.deposit_rows(rows_k2, bb_k2, total_k2))
     log(f"  deposit_rows, {SIZES[0][0]}x{SIZES[0][1]} ({total_k2} bytes): "
         f"{k2_kernels}  [{card}]")
-    check(int(k2_kernels.split()[0]) <= 2,
+    check(k2_count <= 2,
           "one deposit_rows call runs at most two device kernels (no "
           "memset, cast or cumsum)")
+    k3_count, _, k3_kernels = device_kernels(
+        lambda: K.decode_stream_blocks(img_buf, img_starts, L))
+    log(f"  decode_stream_blocks, {SIZES[0][0]}x{SIZES[0][1]}: {k3_kernels}  "
+        f"[{card}]")
+    check(k3_count <= 1, "one decode_stream_blocks call runs at most one "
+          "device kernel (no memset)")
     s, n = main_streams[SIZES[0]]
     W = -(-int(DC.block_bytes_of(flat).max()) // 4)
     for label, fn in (
@@ -1752,8 +1978,38 @@ def main() -> int:
             ("encode_rows(enc='lv')", lambda: DC.encode_rows(flat, W)),
             ("encode_rows(enc='tables')",
              lambda: DC.encode_rows(flat, W, enc="tables"))):
-        log(f"  {label}, {SIZES[0][0]}x{SIZES[0][1]}: {device_kernels(fn)}  "
-            f"[{card}]")
+        log(f"  {label}, {SIZES[0][0]}x{SIZES[0][1]}: "
+            f"{device_kernels(fn)[2]}  [{card}]")
+    # One call's device time, after the last profiler session: in some runs
+    # a session that followed other work (a session in phase 3, graph
+    # captures) lost the kernels launched through ctypes.
+    log("  -- one call's device time (CUDA graph of 20 calls, replayed): "
+        "back-to-back wrapper calls can be bound by the wrappers' host work")
+    by_name = {e["name"]: e for e in kernels}
+    for name in DEVICE_TIMED:
+        ms_d = graph_ms(results[name]["fn"])
+        if ms_d is not None:
+            by_name[name]["device_ms"] = ms_d
+        log(f"  {name}: " + (f"{ms_d:.4f} ms" if ms_d else "not measured")
+            + f"  [{card}]")
+    ms_d = graph_ms(k5_product)
+    log("  encode_blocks' product without its epilogue (encode_blocks_sums): "
+        + (f"{ms_d:.4f} ms" if ms_d else "not measured") + f"  [{card}]")
+    log("  -- K3 at other tiles than its plan's (uncounted launches): the "
+        "2048x2048 stream at L = 64 and BASELINE (3)'s d = 24 stream at "
+        "L = 576")
+    for label, (buf_t, st_t, L_t) in k3_streams.items():
+        plan_t = K.decode_stream_plan(L_t)
+        row = []
+        for tile_t in sorted({min(max(plan_t.tile * m // 4, 1),
+                                  K.DECODE_TILE_MAX)
+                              for m in (1, 2, 4, 8, 16)}):
+            p_t = plan_t._replace(tile=tile_t)
+            ms_t = graph_ms(lambda: K._decode_stream(buf_t, st_t, L_t, p_t))
+            row.append(f"tile {tile_t} " + (f"{ms_t:.4f} ms" if ms_t
+                                            else "not measured"))
+        log(f"  {label}: " + "; ".join(row) + f" (the plan's: "
+            f"{plan_t.tile})  [{card}]")
     h, w = SIZES[0]
     log(f"  -- step pipeline, {h}x{w} Y band at the main configuration "
         f"(host clock, median of 3)")

@@ -20,18 +20,18 @@
 // against 0.0033 ms at the 495 TFLOP/s TF32 tensor-core rate, so bytes
 // bound it; at d = 24 (K = 576, M = 9,216: 15.4 GFLOP, 13 MB) the flops do,
 // 0.031 ms.  The f32 SIMT rate (67 TFLOP/s) would bound it at 0.024 ms on
-// the main path and 0.23 ms at d = 24; the earlier SIMT design
-// (tiled_product.cuh, now K5's only) reached 26 % of that rate and lost to
-// cuBLAS's f32 product at d = 24.
+// the main path and 0.23 ms at d = 24; the earlier SIMT tiled product
+// reached 26 % of that rate and lost to cuBLAS's f32 product at d = 24.
 //
 // What the design does about it: the product runs on the TF32 tensor cores
-// with f32 accuracy (tc_product.cuh: two TF32 pieces of each operand, three
-// mma.sync per k8 step, the step's sum reset and added in f32 registers;
-// the derived error bound there is B(K) * 2^-23 * sum|terms|, B(64) = 20.1
-// and B(576) = 52.8, inside the contract's (K + 16)).  The levels and the
-// operator are staged by cp.async through a 3-stage shared-memory ring; the
-// dequantize and the split are fused into the fragment loads, round, clamp
-// and uint8 into the epilogue, which writes 16 pixels per store.  The TPU's
+// with f32 accuracy (tc_product.cuh, its 64 x 128 tile: two TF32 pieces of
+// each operand, three mma.sync per k8 step, the step's sum reset and added
+// in f32 registers; the derived error bound there is B(K) * 2^-23 *
+// sum|terms|, B(64) = 20.1 and B(576) = 52.8, inside the contract's
+// (K + 16)).  The levels and the operator are staged by cp.async through
+// a 3-stage shared-memory ring; the dequantize and the split are fused into
+// the fragment loads, round, clamp and uint8 into the epilogue, which
+// writes 16 pixels per store.  The TPU's
 // 128-lane block packing (kron(I_P, W) operators) and pr-major panels were
 // MXU and relayout artifacts and are gone: the operator is taken unpacked.
 #include <mutex>
@@ -51,6 +51,7 @@ struct DequantA {
 
 struct PixelEpi {
   using Out = uint8_t;
+  static constexpr bool kStaged = false;
   __device__ uint8_t operator()(int64_t, int, float acc) const {
     return static_cast<uint8_t>(fminf(fmaxf(rintf(acc), 0.f), 255.f));
   }
@@ -60,8 +61,11 @@ struct PixelEpi {
 // the split product against an exact reference; not on any codec path).
 struct SumEpi {
   using Out = float;
+  static constexpr bool kStaged = false;
   __device__ float operator()(int64_t, int, float acc) const { return acc; }
 };
+
+using Tile = jt::tc::Wide;
 
 template <bool kVec, class Epi>
 __global__ void __launch_bounds__(jt::tc::kThreads, 2)
@@ -70,8 +74,9 @@ __global__ void __launch_bounds__(jt::tc::kThreads, 2)
                          const float* __restrict__ opt, int64_t n, int K,
                          int M, typename Epi::Out* __restrict__ out,
                          bool vec_store) {
-  jt::tc::tc_product<kVec>(reinterpret_cast<const uint32_t*>(lv), opt, n, K,
-                           M, DequantA{deq, K}, Epi{}, out, vec_store);
+  jt::tc::tc_product<Tile, kVec>(reinterpret_cast<const uint32_t*>(lv), opt,
+                                 n, K, M, DequantA{deq, K}, Epi{}, out,
+                                 vec_store);
 }
 
 // The kernel's opt-in to more than 48 KB of dynamic shared memory, once per
@@ -85,7 +90,7 @@ cudaError_t opt_in(int device) {
   std::call_once(once[device], [device] {
     err[device] = cudaFuncSetAttribute(
         decode_blocks_kernel<kVec, Epi>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, jt::tc::kSmemBytes);
+        cudaFuncAttributeMaxDynamicSharedMemorySize, Tile::kSmemBytes);
   });
   return err[device];
 }
@@ -95,7 +100,7 @@ int launch(const void* levels, const void* deq, const void* op_t, int64_t n,
            int32_t K, int32_t M, void* out, int32_t device, void* stream) {
   cudaSetDevice(device);
   unsigned blocks;
-  if (!jt::tc::tc_grid(n, M, &blocks))
+  if (!jt::tc::tc_grid<Tile>(n, M, &blocks))
     return static_cast<int>(cudaErrorInvalidValue);
   using Out = typename Epi::Out;
   const bool vec_store = jt::tc::tc_vec_stores<Out>(out, M);
@@ -105,7 +110,7 @@ int launch(const void* levels, const void* deq, const void* op_t, int64_t n,
   if (err != cudaSuccess) return static_cast<int>(err);
   auto* kernel = vec_loads ? decode_blocks_kernel<true, Epi>
                            : decode_blocks_kernel<false, Epi>;
-  kernel<<<blocks, jt::tc::kThreads, jt::tc::kSmemBytes,
+  kernel<<<blocks, jt::tc::kThreads, Tile::kSmemBytes,
            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(levels), static_cast<const int32_t*>(deq),
       static_cast<const float*>(op_t), n, K, M, static_cast<Out*>(out),

@@ -1,15 +1,16 @@
-// The tensor-core f32 product of K4 (decode_blocks.cu):
-// out[n, m] = epi(n, m, sum_k a(n, k) * op_t[k, m]) for an (N, K) left
-// operand of 32-bit words, converted by a functor as it is read, and a
-// (K, M) f32 operator, both in device memory, with f32 accuracy from TF32
-// tensor cores ("3xTF32").  K5 is to move onto it next.
+// The tensor-core f32 product of K4 (decode_blocks.cu) and K5
+// (encode_blocks.cu): out[n, m] = epi(n, m, sum_k a(n, k) * op_t[k, m])
+// for an (N, K) left operand of 32-bit words, converted by a functor as it
+// is read, and a (K, M) f32 operator, both in device memory, with f32
+// accuracy from TF32 tensor cores ("3xTF32").
 //
 // The split.  Every f32 value x is cut into two TF32 pieces as its
 // fragment is read from shared memory: x_hi = rna_tf32(x), x_lo =
 // rna_tf32(x - x_hi), where rna_tf32 rounds to the 10 explicit mantissa
 // bits of TF32, half away from zero (what cvt.rna.tf32.f32 does, done here
 // on the bits with two integer operations: (x + kTf32Round) & kTf32Mask),
-// and x - x_hi is exact in f32.  So
+// and x - x_hi is exact in f32.  So, for every normal f32 x (integers,
+// K5's fractional pixel means and its cos/sin operator alike),
 //   |x - x_hi| <= 2^-11 |x|,
 //   |x - x_hi - x_lo| <= 2^-22 |x|.
 // An integer below 2^22 splits exactly into the two pieces (x - x_hi is an
@@ -37,56 +38,74 @@
 // Together |acc - sum_k a_k b_k| <= B(K) u S, with
 //   B(K) = 1.003 (min(K, 8) + 2) + 0.51 ceil(K / 8) + 6.01,
 // 20.1 at K = 64 and 52.8 at K = 576, below the contract's K + 16 (80 and
-// 592; utils/parity.py, which also covers the operator's f32 rounding) at
+// 592; utils/parity.py, which also covers the operands' f32 rounding) at
 // every K >= 1.  The reset of d at every k8 step is what keeps the bound:
 // accumulating all K on the tensor cores would give about 1.13 K, above
-// K + 16 at K = 576.
+// K + 16 at K = 576.  An epilogue that scales the sum (K5's mul / div)
+// scales its error by the same factor.
 //
-// The tiles.  64 rows x 128 columns per thread block of 8 warps (2 x 4), a
-// 32 x 32 warp tile (2 x 4 m16n8 tiles, 32 accumulators a thread), K in
-// slices of 32 through a 3-stage ring of shared memory filled by cp.async
-// (16-byte copies when K and M are multiples of 4 and the operands are
-// 16-byte aligned, else 4-byte copies; ragged edges zero-filled).  Shared
-// rows are padded (A: 36 words, B: 136 words) so that every fragment load
-// is free of bank conflicts.  On an H100 this beat, at the main path's and
-// d = 24's shapes, splitting each staged slice once into shared {hi, lo}
-// pairs (more shared-memory traffic, and a barrier or a second buffer
-// between the split and the products), slices of 16, a fourth stage and
-// 128 x 128 tiles, and the register-blocked SIMT design
-// (benchmarks/torch_k4_designs.py times that one against it).  The
-// epilogue stages the converted tile in shared memory and writes rows with
-// 16-byte stores where the output rows are 16-byte aligned, else element
-// by element.  The grid is 1-D with the column tiles of a row tile
-// adjacent, so the row tile's A is read from device memory once and from
-// L2 by its neighbours.
+// The tiles.  A thread block of 8 warps takes a Shape: 64 rows x 128
+// columns (2 x 4 warps; K4, and K5 at L > 64) or 128 rows x 64 columns
+// (4 x 2 warps; K5 at L <= 64, where a 128-column tile would be half
+// zero-filled), a 32 x 32 warp tile (2 x 4 m16n8 tiles, 32 accumulators a
+// thread), K in slices of 32 through a 3-stage ring of shared memory
+// filled by cp.async (16-byte copies when K and M are multiples of 4 and
+// the operands are 16-byte aligned, else 4-byte copies; ragged edges
+// zero-filled).  Shared rows are padded (A: 36 words; B: 136 or 72 words)
+// so that every fragment load is free of bank conflicts.  On an H100 this
+// beat, at K4's main-path and d = 24 shapes, splitting each staged slice
+// once into shared {hi, lo} pairs (more shared-memory traffic, and a
+// barrier or a second buffer between the split and the products), slices
+// of 16, a fourth stage and 128 x 128 tiles, and the register-blocked SIMT
+// design (benchmarks/torch_k4_designs.py times that one against it).  The
+// epilogue stages the tile in shared memory and writes rows with 16-byte
+// stores where the output rows are 16-byte aligned, else element by
+// element.  Where the conversion runs is the epilogue's Epi::kStaged:
+// false converts each sum in registers before the staging (K4's round and
+// clamp); true stages the raw f32 sums and converts them as the rows
+// leave, four consecutive columns a thread.  On an H100 the second made
+// K5 (an IEEE multiply and divide a sum) faster and K4's main path slower.
+// The grid is 1-D with the column tiles of a row tile adjacent, so the row
+// tile's A is read from device memory once and from L2 by its neighbours.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace jt {
 namespace tc {
 
-constexpr int kBM = 64;                  // rows per thread block
-constexpr int kBN = 128;                 // output columns per thread block
 constexpr int kBK = 32;                  // contraction slice per stage
 constexpr int kStages = 3;               // cp.async ring depth
-constexpr int kWarpsM = 2;
-constexpr int kWarpsN = 4;
-constexpr int kThreads = 32 * kWarpsM * kWarpsN;          // 256
-constexpr int kWM = kBM / kWarpsM;                        // 32
-constexpr int kWN = kBN / kWarpsN;                        // 32
-constexpr int kMT = kWM / 16;                             // m16 tiles a warp
-constexpr int kNT = kWN / 8;                              // n8 tiles a warp
-constexpr int kAStride = kBK + 4;                         // words
-constexpr int kBStride = kBN + 8;                         // words
-constexpr int kStageWords = kBM * kAStride + kBK * kBStride;
-constexpr int kSmemBytes = kStages * kStageWords * 4;     // 79,872
+constexpr int kWM = 32;                  // warp tile rows
+constexpr int kWN = 32;                  // warp tile columns
+constexpr int kMT = kWM / 16;            // m16 tiles a warp
+constexpr int kNT = kWN / 8;             // n8 tiles a warp
+constexpr int kThreads = 256;            // 8 warps, either shape
+constexpr int kAStride = kBK + 4;        // words
 constexpr uint32_t kTf32Round = 0x1000u;
 constexpr uint32_t kTf32Mask = 0xffffe000u;
 
 static_assert(kBK % 8 == 0 && kWM % 16 == 0 && kWN % 8 == 0, "mma tiling");
-static_assert(kAStride % 32 == 4 && kBStride % 32 == 8,
-              "conflict-free fragment loads");
+static_assert(kAStride % 32 == 4, "conflict-free A fragment loads");
+
+// A thread block's tile: BM rows x BN output columns.
+template <int BM, int BN>
+struct Shape {
+  static constexpr int kBM = BM;
+  static constexpr int kBN = BN;
+  static constexpr int kWarpsM = BM / kWM;
+  static constexpr int kWarpsN = BN / kWN;
+  static constexpr int kBStride = BN + 8;                   // words
+  static constexpr int kStageWords = BM * kAStride + kBK * kBStride;
+  static constexpr int kSmemBytes = kStages * kStageWords * 4;
+  static_assert(BM % kWM == 0 && BN % kWN == 0, "warp tiling");
+  static_assert(32 * kWarpsM * kWarpsN == kThreads, "8 warps");
+  static_assert(kBStride % 32 == 8, "conflict-free B fragment loads");
+};
+using Wide = Shape<64, 128>;    // 79,872 bytes of shared memory
+using Tall = Shape<128, 64>;    // 82,944 bytes
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -134,9 +153,9 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
         "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
 }
 
-// Stage the A slice [row0, row0 + kBM) x [k0, k0 + kBK) and the B slice
-// [k0, k0 + kBK) x [col0, col0 + kBN) into one ring stage.
-template <bool kVec>
+// Stage the A slice [row0, row0 + BM) x [k0, k0 + kBK) and the B slice
+// [k0, k0 + kBK) x [col0, col0 + BN) into one ring stage.
+template <class S, bool kVec>
 __device__ __forceinline__ void load_stage(uint32_t* As, float* Bs,
                                            const uint32_t* __restrict__ a,
                                            const float* __restrict__ b,
@@ -145,42 +164,43 @@ __device__ __forceinline__ void load_stage(uint32_t* As, float* Bs,
   const int tid = threadIdx.x;
   if (kVec) {
 #pragma unroll
-    for (int c = tid; c < kBM * kBK / 4; c += kThreads) {
+    for (int c = tid; c < S::kBM * kBK / 4; c += kThreads) {
       const int r = c / (kBK / 4), kc = (c % (kBK / 4)) * 4;
       const bool ok = row0 + r < n && k0 + kc < K;
       cp_async16(As + r * kAStride + kc,
                  ok ? a + (row0 + r) * K + k0 + kc : a, ok);
     }
 #pragma unroll
-    for (int c = tid; c < kBK * kBN / 4; c += kThreads) {
-      const int kk = c / (kBN / 4), nc = (c % (kBN / 4)) * 4;
+    for (int c = tid; c < kBK * S::kBN / 4; c += kThreads) {
+      const int kk = c / (S::kBN / 4), nc = (c % (S::kBN / 4)) * 4;
       const bool ok = k0 + kk < K && col0 + nc < M;
-      cp_async16(Bs + kk * kBStride + nc,
+      cp_async16(Bs + kk * S::kBStride + nc,
                  ok ? b + int64_t(k0 + kk) * M + col0 + nc : b, ok);
     }
   } else {
 #pragma unroll
-    for (int e = tid; e < kBM * kBK; e += kThreads) {
+    for (int e = tid; e < S::kBM * kBK; e += kThreads) {
       const int r = e / kBK, kk = e % kBK;
       const bool ok = row0 + r < n && k0 + kk < K;
       cp_async4(As + r * kAStride + kk, ok ? a + (row0 + r) * K + k0 + kk : a,
                 ok);
     }
 #pragma unroll
-    for (int e = tid; e < kBK * kBN; e += kThreads) {
-      const int kk = e / kBN, c = e % kBN;
+    for (int e = tid; e < kBK * S::kBN; e += kThreads) {
+      const int kk = e / S::kBN, c = e % S::kBN;
       const bool ok = k0 + kk < K && col0 + c < M;
-      cp_async4(Bs + kk * kBStride + c,
+      cp_async4(Bs + kk * S::kBStride + c,
                 ok ? b + int64_t(k0 + kk) * M + col0 + c : b, ok);
     }
   }
 }
 
-// One thread block's 64 x 128 tile of the product.  conv(word, k) -> float
-// converts an A word of column k (it is given 0 for the zero-filled edge);
-// epi(row, col, acc) -> Epi::Out is called for outputs in range.  Needs
-// kSmemBytes of dynamic shared memory.
-template <bool kVec, class Conv, class Epi>
+// One thread block's S::kBM x S::kBN tile of the product.  conv(word, k)
+// -> float converts an A word of column k (it is given 0 for the
+// zero-filled edge); epi(row, col, acc) -> Epi::Out is called for outputs
+// in range, before (Epi::kStaged false) or after (true) the tile is staged
+// in shared memory.  Needs S::kSmemBytes of dynamic shared memory.
+template <class S, bool kVec, class Conv, class Epi>
 __device__ __forceinline__ void tc_product(const uint32_t* __restrict__ a,
                                            const float* __restrict__ b,
                                            int64_t n, int K, int M, Conv conv,
@@ -188,6 +208,8 @@ __device__ __forceinline__ void tc_product(const uint32_t* __restrict__ a,
                                            typename Epi::Out* __restrict__ out,
                                            bool vec_store) {
   using Out = typename Epi::Out;
+  constexpr int kBM = S::kBM, kBN = S::kBN, kBStride = S::kBStride;
+  constexpr int kStageWords = S::kStageWords;
   extern __shared__ __align__(16) unsigned char smem[];
   uint32_t* ring = reinterpret_cast<uint32_t*>(smem);
 
@@ -197,7 +219,7 @@ __device__ __forceinline__ void tc_product(const uint32_t* __restrict__ a,
   const int col0 = static_cast<int>(tile % col_tiles) * kBN;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int wm = warp / kWarpsN, wn = warp % kWarpsN;
+  const int wm = warp / S::kWarpsN, wn = warp % S::kWarpsN;
 
   float acc[kMT][kNT][4];
 #pragma unroll
@@ -212,8 +234,8 @@ __device__ __forceinline__ void tc_product(const uint32_t* __restrict__ a,
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < ktiles) {
       uint32_t* st = ring + s * kStageWords;
-      load_stage<kVec>(st, reinterpret_cast<float*>(st + kBM * kAStride), a,
-                       b, n, K, M, row0, col0, s * kBK);
+      load_stage<S, kVec>(st, reinterpret_cast<float*>(st + kBM * kAStride),
+                          a, b, n, K, M, row0, col0, s * kBK);
     }
     cp_async_commit();
   }
@@ -226,8 +248,8 @@ __device__ __forceinline__ void tc_product(const uint32_t* __restrict__ a,
       const int nk = kt + kStages - 1;
       if (nk < ktiles) {
         uint32_t* st = ring + (nk % kStages) * kStageWords;
-        load_stage<kVec>(st, reinterpret_cast<float*>(st + kBM * kAStride),
-                         a, b, n, K, M, row0, col0, nk * kBK);
+        load_stage<S, kVec>(st, reinterpret_cast<float*>(st + kBM * kAStride),
+                            a, b, n, K, M, row0, col0, nk * kBK);
       }
       cp_async_commit();
     }
@@ -276,10 +298,13 @@ __device__ __forceinline__ void tc_product(const uint32_t* __restrict__ a,
   cp_async_wait<0>();
   __syncthreads();
 
-  // Epilogue: the converted tile through shared memory, then whole rows.
-  constexpr int kOutStride = kBN + 16 / static_cast<int>(sizeof(Out));
-  static_assert(kBM * kOutStride * sizeof(Out) <= kSmemBytes, "out tile");
-  Out* os = reinterpret_cast<Out*>(smem);
+  // Epilogue: the tile through shared memory (converted, or the raw sums),
+  // then whole rows.
+  using Staged = typename std::conditional<Epi::kStaged, float, Out>::type;
+  constexpr int kOutStride = kBN + 16 / static_cast<int>(sizeof(Staged));
+  static_assert(kBM * kOutStride * sizeof(Staged) <= S::kSmemBytes,
+                "out tile");
+  Staged* os = reinterpret_cast<Staged*>(smem);
 #pragma unroll
   for (int i = 0; i < kMT; ++i)
 #pragma unroll
@@ -288,10 +313,14 @@ __device__ __forceinline__ void tc_product(const uint32_t* __restrict__ a,
       for (int e = 0; e < 4; ++e) {
         const int r = wm * kWM + i * 16 + g + (e >> 1) * 8;
         const int c = wn * kWN + j * 8 + 2 * t + (e & 1);
-        const int64_t gr = row0 + r;
-        const int gc = col0 + c;
-        os[r * kOutStride + c] =
-            (gr < n && gc < M) ? epi(gr, gc, acc[i][j][e]) : Out(0);
+        if constexpr (Epi::kStaged) {
+          os[r * kOutStride + c] = acc[i][j][e];
+        } else {
+          const int64_t gr = row0 + r;
+          const int gc = col0 + c;
+          os[r * kOutStride + c] =
+              (gr < n && gc < M) ? epi(gr, gc, acc[i][j][e]) : Out(0);
+        }
       }
   __syncthreads();
   const int cols = M - col0 < kBN ? M - col0 : kBN;
@@ -300,23 +329,50 @@ __device__ __forceinline__ void tc_product(const uint32_t* __restrict__ a,
     constexpr int kChunks = kBN / kChunk;
     for (int c = tid; c < kBM * kChunks; c += kThreads) {
       const int r = c / kChunks, cc = (c % kChunks) * kChunk;
-      if (row0 + r < n && cc < cols)
-        *reinterpret_cast<uint4*>(out + (row0 + r) * M + col0 + cc) =
-            *reinterpret_cast<const uint4*>(os + r * kOutStride + cc);
+      if (row0 + r < n && cc < cols) {
+        uint4* dst =
+            reinterpret_cast<uint4*>(out + (row0 + r) * M + col0 + cc);
+        if constexpr (Epi::kStaged) {
+          union {
+            uint4 v;
+            Out o[kChunk];
+          } u;
+#pragma unroll
+          for (int q = 0; q < kChunk; q += 4) {
+            const float4 v = *reinterpret_cast<const float4*>(
+                os + r * kOutStride + cc + q);
+            const int64_t gr = row0 + r;
+            const int gc = col0 + cc + q;
+            u.o[q] = epi(gr, gc, v.x);
+            u.o[q + 1] = epi(gr, gc + 1, v.y);
+            u.o[q + 2] = epi(gr, gc + 2, v.z);
+            u.o[q + 3] = epi(gr, gc + 3, v.w);
+          }
+          *dst = u.v;
+        } else {
+          *dst = *reinterpret_cast<const uint4*>(os + r * kOutStride + cc);
+        }
+      }
     }
   } else {
     for (int e = tid; e < kBM * kBN; e += kThreads) {
       const int r = e / kBN, c = e % kBN;
-      if (row0 + r < n && c < cols)
-        out[(row0 + r) * M + col0 + c] = os[r * kOutStride + c];
+      if (row0 + r < n && c < cols) {
+        if constexpr (Epi::kStaged)
+          out[(row0 + r) * M + col0 + c] =
+              epi(row0 + r, col0 + c, os[r * kOutStride + c]);
+        else
+          out[(row0 + r) * M + col0 + c] = os[r * kOutStride + c];
+      }
     }
   }
 }
 
-// The 1-D launch grid of tc_product, or false where it overflows.
+// The 1-D launch grid of tc_product<S>, or false where it overflows.
+template <class S>
 inline bool tc_grid(int64_t n, int M, unsigned* blocks) {
   const int64_t tiles =
-      ((n + kBM - 1) / kBM) * int64_t((M + kBN - 1) / kBN);
+      ((n + S::kBM - 1) / S::kBM) * int64_t((M + S::kBN - 1) / S::kBN);
   if (tiles < 1 || tiles > 0x7fffffff) return false;
   *blocks = static_cast<unsigned>(tiles);
   return true;
@@ -330,6 +386,8 @@ inline bool tc_vec_loads(const void* a, const void* b, int K, int M) {
 }
 
 // 16-byte stores are legal: output rows of a multiple of 16 bytes, 16-aligned.
+// (Either shape's column tiles are multiples of 16 bytes, so every chunk
+// of a row starts 16-aligned.)
 template <class Out>
 inline bool tc_vec_stores(const void* out, int M) {
   return (int64_t(M) * sizeof(Out)) % 16 == 0 &&

@@ -69,14 +69,17 @@ _SIGNATURES = {
     "jt_encode_tables": (_P, _P, _P, _I64, _I32, _I32, _P, _I32, _P),
     # rows, blk_bytes, n, W, out, cap, tile status scratch, device, stream
     "jt_deposit_rows": (_P, _P, _I64, _I32, _P, _I64, _P, _I32, _P),
-    # stream bytes, nbytes, starts, n, L, out, device, stream
-    "jt_decode_stream": (_P, _I64, _P, _I64, _I32, _P, _I32, _P),
+    # stream bytes, nbytes, starts, n, L, tile, halo, out, device, stream
+    "jt_decode_stream": (_P, _I64, _P, _I64, _I32, _I32, _I32, _P, _I32, _P),
     # levels, deq, op_t, n, K, M, out, device, stream
     "jt_decode_blocks": (_P, _P, _P, _I64, _I32, _I32, _P, _I32, _P),
     # the same, out (N, M) f32: K4's sums before its epilogue
     "jt_decode_blocks_sums": (_P, _P, _P, _I64, _I32, _I32, _P, _I32, _P),
     # x, op_t, mul, div, mask, n, K, L, out, device, stream
     "jt_encode_blocks": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _P, _I32, _P),
+    # x, op_t, n, K, L, out (N, L) f32, device, stream: K5's sums before
+    # its epilogue
+    "jt_encode_blocks_sums": (_P, _P, _I64, _I32, _I32, _P, _I32, _P),
     # stream bytes, P, limit bits, L, tile, halo, end table, device, stream
     "jt_scan_walk": (_P, _I64, _I64, _I32, _I32, _I32, _P, _I32, _P),
     # stream bytes, P, limit bits, L, q, c0, w0, M, n_live, steps,
@@ -222,6 +225,10 @@ def _on_cuda(*tensors) -> bool:
     if dev.type == "cpu":
         return False
     raise ValueError(f"no kernel for device {dev}: use a CUDA or CPU tensor")
+
+
+def _ceil16(n: int) -> int:
+    return -(-n // 16) * 16
 
 
 def _to_i32_words(w: torch.Tensor) -> torch.Tensor:
@@ -472,22 +479,70 @@ def decode_stream_blocks_plain(stream: torch.Tensor, starts: torch.Tensor,
     return out[:, :L].contiguous()
 
 
+# K3's tiles (csrc/decode_stream.cu): a thread block of DECODE_TILE_MAX
+# threads (the kernel's kThreads) decodes up to that many consecutive
+# blocks, keeps their levels in shared memory and stages at most
+# DECODE_SPAN_BYTES (the kernel's kSpanBytes) of their stream.  The plan
+# keeps a tile of more than one block within DECODE_LEVEL_BYTES of levels,
+# the fastest size on an H100 (csrc/decode_stream.cu); the largest L fits
+# a tile of one block in the card's shared memory.
+DECODE_TILE_MAX = 128
+DECODE_LEVEL_BYTES = 12 << 10
+DECODE_SPAN_BYTES = 4 << 10
+DECODE_MAX_L = 1 << 15
+
+
+def block_max_bytes(L: int) -> int:
+    """The longest block the encoder writes at L: every coefficient a code
+    of size 15 (8 + 15 bits), then EOB, padded to a byte."""
+    return ((8 + MAX_SIZE) * L + 8 + 7) // 8
+
+
+class DecodeStreamPlan(NamedTuple):
+    tile: int        # consecutive blocks per thread block
+    halo: int        # bytes staged past the tile's last start
+
+
+def decode_stream_plan(L: int) -> DecodeStreamPlan:
+    """How K3 cuts N blocks of L coefficients: tiles of the most blocks,
+    halving from ``DECODE_TILE_MAX``, whose levels fit in
+    ``DECODE_LEVEL_BYTES`` (at least one block), each staging its span
+    plus a halo of the longest block and the two words its bit buffer can
+    read past the block's EOB, rounded up to 16 bytes."""
+    tile = DECODE_TILE_MAX
+    while tile > 1 and 4 * L * tile > DECODE_LEVEL_BYTES:
+        tile //= 2
+    return DecodeStreamPlan(tile, _ceil16(block_max_bytes(L) + 8))
+
+
+def _decode_stream(stream: torch.Tensor, starts: torch.Tensor, L: int,
+                   plan: DecodeStreamPlan) -> torch.Tensor:
+    """Launch K3 on the stream's device with ``plan`` (the wrapper counts
+    the launch)."""
+    n = starts.shape[0]
+    out = torch.empty((n, L), dtype=torch.int32, device=stream.device)
+    if n:
+        _launch("jt_decode_stream", stream.device, stream.data_ptr(),
+                stream.shape[0], starts.data_ptr(), n, L, plan.tile,
+                plan.halo, out.data_ptr())
+    return out
+
+
 def decode_stream_blocks(stream: torch.Tensor, starts: torch.Tensor,
                          L: int) -> torch.Tensor:
     """(nbytes,) uint8 stream + (N,) int64 block start offsets -> (N, L)
-    int32 levels.  The stream must have been validated by the host
-    boundary scan that produced ``starts``."""
+    int32 levels.  Bytes outside the stream read as zero (EOB), so starts
+    need not be valid: a device scan's are decoded before its check is
+    read.  On the card the kernel writes every element of the output (one
+    launch a call)."""
     _check(stream, "stream", torch.uint8, 1)
     _check(starts, "starts", torch.int64, 1)
-    if L < 1:
-        raise ValueError(f"L must be >= 1, got {L}")
+    if not 1 <= L <= DECODE_MAX_L:
+        raise ValueError(f"L must be in [1, {DECODE_MAX_L}], got {L}")
     if not _on_cuda(stream, starts):
         return decode_stream_blocks_plain(stream, starts, L)
-    n = starts.shape[0]
-    out = torch.zeros((n, L), dtype=torch.int32, device=stream.device)
-    if n:
-        _launch("jt_decode_stream", stream.device, stream.data_ptr(),
-                stream.shape[0], starts.data_ptr(), n, L, out.data_ptr())
+    out = _decode_stream(stream, starts, L, decode_stream_plan(L))
+    if starts.shape[0]:
         _count(decode_stream_blocks)
     return out
 
@@ -591,6 +646,26 @@ def encode_blocks(x: torch.Tensor, op_t: torch.Tensor, mul: torch.Tensor,
     return out
 
 
+def encode_blocks_sums(x: torch.Tensor, op_t: torch.Tensor) -> torch.Tensor:
+    """K5's f32 sums before its quantizer epilogue, (N, L) f32, from the
+    same tensor-core product on CUDA tensors (uncounted: no codec path
+    calls it; ``chip_smoke.py`` measures the product's error with it).  The
+    plain version is the full-f32 product of :func:`encode_blocks_plain`."""
+    _check(x, "x", torch.float32, 2)
+    _check(op_t, "op_t", torch.float32, 2)
+    if op_t.shape[0] != x.shape[1]:
+        raise ValueError("x (N, K) needs op_t (K, L)")
+    if not _on_cuda(x, op_t):
+        with full_f32_matmul():
+            return torch.matmul(x, op_t)
+    n, L = x.shape[0], op_t.shape[1]
+    out = torch.empty((n, L), dtype=torch.float32, device=x.device)
+    if n and L:
+        _launch("jt_encode_blocks_sums", x.device, x.data_ptr(),
+                op_t.data_ptr(), n, x.shape[1], L, out.data_ptr())
+    return out
+
+
 # ---------------------------------------------------------------------------
 # K6: stream bytes -> speculative end table (csrc/scan_walk.cu)
 # ---------------------------------------------------------------------------
@@ -674,10 +749,6 @@ def walk_span_bytes(L: int) -> int:
 class ScanWalkPlan(NamedTuple):
     tile: int        # table entries (and walkers) per thread block
     halo: int        # bytes staged past the tile, a multiple of 16
-
-
-def _ceil16(n: int) -> int:
-    return -(-n // 16) * 16
 
 
 def scan_walk_plan(P: int, L: int, sms: int) -> ScanWalkPlan:

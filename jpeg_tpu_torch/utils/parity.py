@@ -2,7 +2,7 @@
 
 The f32 path evaluates the same linear maps through several evaluation
 orders — XLA's and cuBLAS's blocked matmuls, the TPU kernels' packed
-panels, the port's tiled product kernels (csrc/tiled_product.cuh), the
+panels, the port's 3xTF32 tensor-core product (csrc/tc_product.cuh), the
 separable two-stage contraction (ops/band.py) — and ``round()`` sits right
 after each.  Where the EXACT (f64) pre-round value is an exact half-integer
 (the unnormalized DCT's cos(pi/4) rows and the DFT's dyadic-rational

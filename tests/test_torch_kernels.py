@@ -14,6 +14,7 @@ version).  Tolerances:
   provable .5 tie (``jpeg_tpu/utils/parity.py``; f32 summation orders
   differ).
 """
+import glob
 import os
 
 import jax.numpy as jnp
@@ -258,7 +259,14 @@ def test_kernel_build_is_keyed_by_source_hash():
         "chase.cu", "compact.cu", "decode_blocks.cu", "decode_stream.cu",
         "encode_blocks.cu", "encode_stream.cu", "encode_tables.cu",
         "scan_walk.cu"]
-    # the two encode kernels share one bit writer
-    for src in ("encode_stream.cu", "encode_tables.cu"):
+    # the two encode kernels share one bit writer, the two products one
+    # tensor-core product
+    for src, header in (("encode_stream.cu", "bit_writer.cuh"),
+                        ("encode_tables.cu", "bit_writer.cuh"),
+                        ("decode_blocks.cu", "tc_product.cuh"),
+                        ("encode_blocks.cu", "tc_product.cuh")):
         with open(os.path.join(K.CSRC, src)) as f:
-            assert '#include "bit_writer.cuh"' in f.read(), src
+            assert f'#include "{header}"' in f.read(), src
+    assert sorted(os.path.basename(p) for p in glob.glob(
+        os.path.join(K.CSRC, "*.cuh"))) == [
+        "bit_writer.cuh", "common.cuh", "tc_product.cuh"]
