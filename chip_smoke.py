@@ -68,7 +68,22 @@ result):
    global memory), and K6-K8 on the d = 24 stream of BASELINE (3) and an
    adversarial L = 576 stream.  K6' (the capped and resumed walkers) is
    held against its plain version on every byte of the image stream at
-   caps 4 and 12, every live walker resumed.
+   caps 4 and 12, every live walker resumed.  K1 on BASELINE (3)'s d = 24
+   levels (N = 1,452, L = 576; its own line in the JSON), and K1 and K9
+   at their design's edges (csrc/bit_writer.cuh: groups of 1, 4, 8, 16 or
+   32 lanes a block, lane-owned slot ranges, rows staged in shared memory up to
+   ``K.ENC_ROW_MAX_WORDS`` words): L = 9, 16, 64, 576 and 1024 (K9 where
+   L <= 75), N = 1, 31, 32, 33, the plans' tiles +- 1 and 49,153, W exact,
+   W - 1 and W - 3 (truncated rows, exact block bytes) and one word over
+   the staged-row budget (the lanes write the global row), on all-zero
+   and all-+-16383 blocks, a nonzero only at slot 0 and L - 1, one at
+   every lane's first or last slot for every group size, runs of 15 k and
+   15 k +- 1 zeros across lane boundaries and the adversarial levels:
+   bit-equal to the plain versions, through the wrappers' plans and
+   through every group size (``K._encode_rows`` / ``K._encode_tables``,
+   uncounted), K9's rows also to K1's and
+   ``_unit_groups``' block bytes to K1's, K1 + K2 at W exact to the host
+   C++ encoder's stream.
 4. Drive the main path, ``compress_ycbcr`` -> ``decompress_to_ycbcr``
    (host C++ boundary scan), at 2048x2048 and 3840x2160 (qtable, DCT,
    dct_size 8, block_size 2) with every kernel's launch count reset just
@@ -139,15 +154,24 @@ result):
    transform is K5), the device kernels of one ``deposit_rows`` call (at
    most two) and of one ``decode_stream_blocks`` call (at most one: no
    memset), and K3 at tiles of a quarter, a half, twice and four times
-   its plan's on the 2048x2048 and d = 24 streams.  Each kernel's line in
-   the JSON carries its bound: the larger of its bytes over the card's
+   its plan's on the 2048x2048 and d = 24 streams; the device kernels of
+   one call of K1, K9 and K1 at L = 576 (at most one each: no memset), and
+   K1 and K9 under every plan of 1, 4, 8, 16 and 32 lanes a block and
+   tiles around the plan's (``K._encode_rows`` / ``K._encode_tables``,
+   uncounted; one lane a block is one thread a block with the same
+   staging), the plan's marked, on the main path's levels, BASELINE (1)'s
+   and (2)'s and (K1) (3)'s, every plan's rows bit-equal to the plan's and
+   the plan's to the plain version's; and the host time of K1's wrapper
+   beside its parts (the launch with a given plan, the plan, the SM
+   count).  Each kernel's line in the JSON carries its bound: the larger of its bytes over the card's
    memory rate and its operations over the f32 rate, or for the products
    of K4 and K5 the TF32 tensor-core rate; and for K4 (main path and d = 24, its own
    line) and K5 ``library_ms``, a full-f32 ``torch.matmul`` of the same
-   operands; their entries also carry ``error_eps32``, and K3's, K4's
-   and K5's one call's device time (``device_ms``: calls captured in a
-   CUDA graph and replayed, since back-to-back wrapper calls include the
-   wrappers' host work).  K5's product is also timed without its epilogue
+   operands; their entries also carry ``error_eps32``, and K1's (main
+   path and L = 576, its own line), K9's, K3's, K4's and K5's one call's
+   device time (``device_ms``: calls captured in a CUDA graph and
+   replayed, since back-to-back wrapper calls include the wrappers' host
+   work).  K5's product is also timed without its epilogue
    (``encode_blocks_sums``).
 
 The last three lines of standard output are a JSON object of per-kernel
@@ -199,10 +223,17 @@ MAIN_PATH = ("encode_stream_rows", "deposit_rows", "decode_stream_blocks",
 HOST_FREE_PATH = ("scan_walk", "chase_starts", "chase_starts_multi")
 # K4 at d = 24 (BASELINE (3)) has its own line in the kernels JSON.
 K4_D24 = "decode_blocks[d=24]"
+# K1 on BASELINE (3)'s d = 24 levels (L = 576) has its own line too.
+K1_L576 = "encode_stream_rows[L=576]"
 TABLES_PATH = ("encode_stream_rows_tables", "deposit_rows")
 # Kernels whose line also carries one call's device time (a CUDA graph).
-DEVICE_TIMED = ("decode_stream_blocks", "decode_blocks", "encode_blocks",
+DEVICE_TIMED = ("encode_stream_rows", "encode_stream_rows_tables", K1_L576,
+                "decode_stream_blocks", "decode_blocks", "encode_blocks",
                 K4_D24)
+# K1's and K9's edge checks: levels per block (K9 where L <= 75), and the
+# block counts checked besides the plan's tile T - 1 and T + 1.
+K1_EDGE_L = (9, 16, 64, 576, 1024)
+K1_EDGE_N = (1, 31, 32, 33, 49153)
 TWO_SWEEP_CAPS = (8, 12, 20)
 # The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): the
 # bound of a kernel is the larger of its bytes over the memory rate and its
@@ -305,6 +336,55 @@ def adversarial_levels(n: int, L: int, seed: int = 1) -> np.ndarray:
         lv[sel, L - 1] = -16383
     lv[kind == 5, :L - 1] = 0                               # run of 63
     return lv.astype(np.int32)
+
+
+def writer_edge_levels(L: int, lanes: int, seed: int) -> np.ndarray:
+    """Blocks at the bit writer's edges for groups of ``lanes`` lanes
+    (csrc/bit_writer.cuh: lane k owns slots [k m, (k + 1) m), m = ceil(L /
+    lanes)): all zero (EOB only), all +-16383, a nonzero only at slot 0
+    and L - 1 (a zero run across every lane), one at every lane's first
+    slot and one at every lane's last, and runs of 15 k and 15 k +- 1
+    zeros ending at the first slot of lane 1 and of the last lane."""
+    rng = np.random.default_rng(seed)
+    m = -(-L // lanes)
+    firsts = list(range(0, L, m))
+    lasts = [min(s + m, L) - 1 for s in firsts]
+    rows = [np.zeros(L, np.int64), rng.choice([-16383, 16383], L)]
+    for cols in ([0, L - 1], firsts, lasts):
+        r = np.zeros(L, np.int64)
+        r[cols] = rng.choice([-16383, -1, 1, 255, 16383], len(cols))
+        rows.append(r)
+    for k in sorted({1, 2, 4, 5, L // 15}):
+        for run in (15 * k - 1, 15 * k, 15 * k + 1):
+            for b in firsts[1:2] + firsts[-1:]:
+                if 0 <= run <= b:
+                    r = np.zeros(L, np.int64)
+                    r[b] = rng.integers(1, 16384)
+                    if b - run - 1 >= 0:
+                        r[b - run - 1] = -rng.integers(1, 16384)
+                    rows.append(r)
+    return np.stack(rows).astype(np.int32)
+
+
+def writer_levels(n: int, L: int, seed: int, groups) -> np.ndarray:
+    """n blocks: ``writer_edge_levels``' for each group size of ``groups``
+    first, then ``adversarial_levels`` (L >= 64) or sparse random
+    levels with bare-EOB and all-+-16383 blocks; the first 256 shuffled,
+    so that short prefixes mix them."""
+    rng = np.random.default_rng(seed)
+    edge = np.concatenate([writer_edge_levels(L, G, seed + G)
+                           for G in groups])
+    k = max(n - len(edge), 0)
+    if L >= 64:
+        rest = adversarial_levels(k, L, seed=seed)
+    else:
+        rest = np.where(rng.random((k, L)) < 0.3,
+                        rng.integers(-16383, 16384, (k, L)), 0)
+        rest[::5] = 0
+        rest[1::7] = rng.choice([-16383, 16383], rest[1::7].shape)
+    lv = np.concatenate([edge, rest.astype(np.int32)])[:n]
+    rng.shuffle(lv[:256])
+    return np.ascontiguousarray(lv)
 
 
 def walk_units(buf, n_bytes: int, L: int):
@@ -449,6 +529,31 @@ def graph_ms(fn, calls: int = 20, reps: int = 10):
     except RuntimeError as e:
         log(f"  (graph capture failed: {e}; device time not measured)")
         return None
+
+
+def outputs_equal(a, b) -> bool:
+    """Bit-equal tensors, or tuples of them."""
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(map(torch.equal, a, b))
+    return torch.equal(a, b)
+
+
+def host_us(fn, calls: int = 2000) -> float:
+    """Median host time of one call of ``fn`` in us (``perf_counter``),
+    the device queue drained every 100 calls so that no call waits on it.
+    """
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for i in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+        if i % 100 == 99:
+            torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    return float(np.median(times)) * 1e6
 
 
 def device_kernels(fn, top: int = 6):
@@ -1342,6 +1447,99 @@ def main() -> int:
         f"d = 24 stream (N = {n24}, L = 576, {len(raw24)} bytes)":
             (buf24, st24, 576)}
 
+    # K1 on BASELINE (3)'s d = 24 levels (its own line in the kernels JSON).
+    W24 = -(-int(DC.block_bytes_of(flat24).max()) // 4)
+    rows24_k, bb24_k = K.encode_stream_rows(flat24, W24)
+    rows24_p, bb24_p = K.encode_stream_rows_plain(flat24, W24)
+    check(torch.equal(rows24_k, rows24_p) and torch.equal(bb24_k, bb24_p),
+          f"K1 on BASELINE (3)'s d = 24 levels (N = {n24}, L = 576, W = "
+          f"{W24}): rows and block bytes bit-equal to plain")
+    results[K1_L576] = dict(
+        err=max(max_diff(rows24_k, rows24_p), max_diff(bb24_k, bb24_p)),
+        fn=lambda lv=flat24, w=W24: K.encode_stream_rows(lv, w),
+        plain=lambda lv=flat24, w=W24: K.encode_stream_rows_plain(lv, w),
+        plain_reps=1, nbytes=4 * n24 * (576 + W24 + 1),
+        shape=f"N={n24}, L=576, W={W24}")
+
+    # K1 and K9 at their design's edges (csrc/bit_writer.cuh: a group of
+    # lanes a block, each lane a run of slots and their bits, rows staged
+    # in shared memory up to K.ENC_ROW_MAX_WORDS words): L = 9 ... 1024
+    # (K9 where L <= 75), N = 1, 31, 32, 33, the plan's tile T - 1 and T +
+    # 1 and 49,153 (prefixes of one level set: a block's row depends on its
+    # levels alone), W exact, W - 1 and W - 3 (truncated rows, exact block
+    # bytes) and one word over the staged-row budget (the lanes write the
+    # global row): bit-equal to the plain versions through the wrappers'
+    # plans and at every group size (one plain call per L at the widest W,
+    # cut to each width: a narrower row keeps the wider one's first words),
+    # K9's rows also to K1's and _unit_groups' block bytes to
+    # K1's, and K1 + K2 at W exact to the host C++ encoder's stream.
+    k1_err = k9_err = 0
+    for L1 in K1_EDGE_L:
+        lv1_np = writer_levels(max(K1_EDGE_N), L1, L1, K.ENC_LANES)
+        lv1 = torch.from_numpy(lv1_np).to(dev)
+        bb1 = DC.block_bytes_of(lv1)
+        W_top = max(-(-int(bb1.max()) // 4), K.ENC_ROW_MAX_WORDS + 1)
+        rows_p1, bb_p1 = K.encode_stream_rows_plain(lv1, W_top)
+        tables = L1 <= DC.TABLES_MAX_L
+        if tables:
+            cb1, vh1, vl1, bbt1 = DC._unit_groups(lv1)
+            rows9_p1 = K.encode_stream_rows_tables_plain(cb1, vh1, vl1, W_top)
+            check(torch.equal(rows9_p1, rows_p1) and torch.equal(bbt1, bb_p1),
+                  f"plain K9 = plain K1 at L = {L1}")
+        tiles = {K.encode_rows_plan(n_t, L1 + k, -(-int(bb1[:n_t].max())
+                                                   // 4), sms, 1 + k).tile
+                 for n_t in K1_EDGE_N for k in (0, 1)}
+        for n1 in sorted({*K1_EDGE_N, *(t + d for t in tiles for d in (-1, 1)
+                                        if t + d > 0)}):
+            W_n = -(-int(bb1[:n1].max()) // 4)
+            widths = sorted({W_n, max(W_n - 1, 1), max(W_n - 3, 1),
+                             K.ENC_ROW_MAX_WORDS + 1})
+            plans = []
+            for w in widths:
+                want_r, want_b = rows_p1[:n1, :w], bb_p1[:n1]
+                rows_k, bb_k = K.encode_stream_rows(lv1[:n1], w)
+                k1_err = max(k1_err, max_diff(rows_k, want_r),
+                             max_diff(bb_k, want_b))
+                ok = torch.equal(rows_k, want_r) and torch.equal(bb_k, want_b)
+                if tables:
+                    rows9 = K.encode_stream_rows_tables(
+                        cb1[:n1], vh1[:n1], vl1[:n1], w)
+                    k9_err = max(k9_err, max_diff(rows9, want_r))
+                    ok = ok and torch.equal(rows9, want_r)
+                # every group size, through the uncounted launchers
+                for G in K.ENC_LANES:
+                    r_g, b_g = K._encode_rows(lv1[:n1], w,
+                                              K.encode_rows_fit(G, L1, w))
+                    k1_err = max(k1_err, max_diff(r_g, want_r),
+                                 max_diff(b_g, want_b))
+                    ok = ok and torch.equal(r_g, want_r) and torch.equal(
+                        b_g, want_b)
+                    if tables:
+                        r9_g = K._encode_tables(
+                            cb1[:n1], vh1[:n1], vl1[:n1], w,
+                            K.encode_rows_fit(G, L1 + 1, w, 2))
+                        k9_err = max(k9_err, max_diff(r9_g, want_r))
+                        ok = ok and torch.equal(r9_g, want_r)
+                if w == W_n:
+                    total1 = int(bb_k.to(torch.int64).sum())
+                    ok = ok and (K.deposit_rows(rows_k, bb_k, total1).cpu()
+                                 .numpy().tobytes()
+                                 == native_codec.encode_levels(lv1_np[:n1]))
+                p1 = K.encode_rows_plan(n1, L1, w, sms)
+                plans.append(f"{w} ({p1.lanes} lanes, tile {p1.tile}, "
+                             f"{'shared' if p1.smem_rows else 'global'})")
+                check(ok, f"K1{' and K9' if tables else ''}, L = {L1}, N = "
+                      f"{n1}, W = {w}: bit-equal to plain through the plan "
+                      "and at every group size"
+                      + (" and to each other" if tables else "")
+                      + (", K1 + K2 = the host C++ stream" if w == W_n
+                         else ""))
+            log(f"    (L = {L1}, N = {n1}: W = " + ", ".join(plans) + ")")
+    results["encode_stream_rows"]["err"] = max(
+        results["encode_stream_rows"]["err"], k1_err)
+    results["encode_stream_rows_tables"]["err"] = max(
+        results["encode_stream_rows_tables"]["err"], k9_err)
+
     log("== phase 4: main path (compress_ycbcr -> decompress_to_ycbcr)")
     images = {hw: synth_image(*hw) for hw in SIZES}
     runs = {}
@@ -1495,7 +1693,7 @@ def main() -> int:
         "decompress_to_ycbcr, scan='host' and scan='device')")
     baseline_runs = {}
     k5_launches = 0
-    k4_d24_launches = 0
+    k4_d24_launches = k1_l576_launches = 0
     for label, (h, w), bs, d, transform, (qname, qparams) in BASELINE:
         cfg = Configuration(width=w, height=h, block_size=bs, dct_size=d,
                             transform=transform,
@@ -1514,6 +1712,7 @@ def main() -> int:
             k5_launches += counts_c["encode_blocks"]
         if label == "3":
             k4_d24_launches = counts_c["decode_blocks"]
+            k1_l576_launches = counts_c["encode_stream_rows"]
         check((counts_c["encode_blocks"] > 0) == (label == "4b")
               and (counts_c["decode_blocks"] > 0) == (label != "5")
               and all(counts_c[n] > 0 for n in MAIN_PATH if n !=
@@ -1775,6 +1974,7 @@ def main() -> int:
         "encode_stream_rows_tables"]
     launches_of["scan_walk_resume"] = counts_2s["scan_walk_resume"]
     launches_of[K4_D24] = k4_d24_launches
+    launches_of[K1_L576] = k1_l576_launches
     kernels = []
     for name, r in results.items():
         ms = time_ms(r["fn"], 50)
@@ -1980,6 +2180,12 @@ def main() -> int:
              lambda: DC.encode_rows(flat, W, enc="tables"))):
         log(f"  {label}, {SIZES[0][0]}x{SIZES[0][1]}: "
             f"{device_kernels(fn)[2]}  [{card}]")
+    for name in ("encode_stream_rows", "encode_stream_rows_tables", K1_L576):
+        count_w, _, text_w = device_kernels(results[name]["fn"])
+        log(f"  {name} ({results[name].get('shape', 'main path')}): "
+            f"{text_w}  [{card}]")
+        check(count_w <= 1, f"one {name} call runs at most one device "
+              "kernel (no memset)")
     # One call's device time, after the last profiler session: in some runs
     # a session that followed other work (a session in phase 3, graph
     # captures) lost the kernels launched through ctypes.
@@ -1995,6 +2201,115 @@ def main() -> int:
     ms_d = graph_ms(k5_product)
     log("  encode_blocks' product without its epilogue (encode_blocks_sums): "
         + (f"{ms_d:.4f} ms" if ms_d else "not measured") + f"  [{card}]")
+    log("  -- K1 and K9 by plan (uncounted launches, one call's device "
+        "time, ms): for each group size of K.ENC_LANES the fastest of its "
+        "tiles (half, once and twice ENC_THREADS threads' worth, and the "
+        "plan's); every plan's rows (K1: and block bytes) checked "
+        "bit-equal to the plan's, and the plan's to the plain version's "
+        "where L <= 256 (phase 3 holds L = 576 and 1,024)")
+    cfg_sweep = {"1": (4, 8, "none", {}), "2": (5, 8, "qtable", {}),
+                 "3": (4, 24, "divide", {"divisor": 1000})}
+    img_s = torch.from_numpy(images[SIZES[0]]).to(dev).permute(2, 0, 1)
+
+    def sweep_levels(bs, d, qname, qparams):
+        cfg_s = Configuration(width=SIZES[0][1], height=SIZES[0][0],
+                              block_size=bs, dct_size=d,
+                              quantization=QuantizationMethod(qname,
+                                                              **qparams))
+        return BandEncoder(cfg_s).to(dev)(img_s).reshape(-1, d * d)
+
+    # The main path's levels and prefixes of them, BASELINE (1), (2) and
+    # (3) repeated to more blocks, and d = 3, 16 and 32 at several block
+    # sizes (the points encode_rows_plan's thresholds were fitted to).
+    sweep_sets = [(f"main, first {m}", flat[:m]) for m in
+                  (1452, 3072, 6144, 12288, 16384, 24576, 32768)]
+    sweep_sets.append(("main", flat))
+    for label_b in ("1", "2", "3"):
+        lv_b = sweep_levels(*cfg_sweep[label_b])
+        for k in ((1, 2, 4) if label_b != "3" else (1, 2, 4, 8, 16, 32)):
+            sweep_sets.append((f"BASELINE ({label_b}) x {k}",
+                               lv_b.repeat(k, 1)))
+    for bs, d in ((2, 3), (1, 16), (2, 16), (4, 16), (8, 16), (1, 32),
+                  (2, 32), (4, 32)):
+        sweep_sets.append((f"bs {bs}, d {d}", sweep_levels(
+            bs, d, *(("none", {}) if d == 3
+                     else ("divide", {"divisor": 1000})))))
+    sweep_rows = []
+    for label_s, lv_s in sweep_sets:
+        lv_s = lv_s.contiguous()
+        n_s, L_s = lv_s.shape
+        W_s = -(-int(DC.block_bytes_of(lv_s).max()) // 4)
+        sweep_rows.append((
+            f"K1 {label_s}", n_s, L_s, W_s, 1,
+            lambda p, lv=lv_s, w=W_s: K._encode_rows(lv, w, p),
+            lambda lv=lv_s, w=W_s: K.encode_stream_rows_plain(lv, w)))
+        if L_s <= DC.TABLES_MAX_L:
+            cb_s, vh_s, vl_s, _ = DC._unit_groups(lv_s)
+            sweep_rows.append((
+                f"K9 {label_s}", n_s, L_s + 1, W_s, 2,
+                lambda p, c=cb_s, hi=vh_s, lo=vl_s, w=W_s:
+                K._encode_tables(c, hi, lo, w, p),
+                lambda c=cb_s, hi=vh_s, lo=vl_s, w=W_s:
+                K.encode_stream_rows_tables_plain(c, hi, lo, w)))
+    losses = []
+    for label, n_w, S_w, W_w, tables_w, run, plain_w in sweep_rows:
+        plan_w = K.encode_rows_plan(n_w, S_w, W_w, sms, tables_w)
+        out_plan = run(plan_w)
+        same = S_w > 257 or outputs_equal(out_plan, plain_w())
+        by_lanes = {}
+        for lanes in K.ENC_LANES:
+            base = max(K.ENC_THREADS // lanes, 1)
+            tiles = {base // 2, base, 2 * base}
+            if plan_w.lanes == lanes:
+                tiles.add(plan_w.tile)
+            for tile in sorted(tiles):
+                p_w = K.EncodeRowsPlan(lanes, tile, W_w <= K.ENC_ROW_MAX_WORDS)
+                if (tile < 1 or tile * lanes < 32
+                        or (lanes == 1 and tile > K.ENC_THREADS)
+                        or K.encode_rows_smem(S_w, W_w, p_w, tables_w)
+                        > K.ENC_MAX_SMEM):
+                    continue
+                same = same and outputs_equal(run(p_w), out_plan)
+                ms_w = graph_ms(lambda p=p_w, f=run: f(p))
+                if ms_w is not None:
+                    by_lanes[(lanes, tile)] = ms_w
+        check(same, f"{label} (N = {n_w}, L = {S_w - tables_w + 1}): every "
+              "plan's rows bit-equal to the plan's"
+              + (", the plan's to the plain version's" if S_w <= 257
+                 else ""))
+        if not by_lanes:
+            continue
+        best = {}
+        for (lanes, tile), ms_w in by_lanes.items():
+            if lanes not in best or ms_w < best[lanes][1]:
+                best[lanes] = (tile, ms_w)
+        fastest = min(by_lanes.values())
+        ms_plan = by_lanes.get(tuple(plan_w[:2]))
+        if ms_plan is not None:
+            losses.append(ms_plan / fastest - 1)
+        log(f"  {label} (N = {n_w}, L = {S_w - tables_w + 1}, W = {W_w}): "
+            + "; ".join(f"{g} lanes (tile {t}) {ms_g:.4f}"
+                        for g, (t, ms_g) in best.items())
+            + f"; the plan {tuple(plan_w)} "
+            + (f"{ms_plan:.4f}, {100 * (ms_plan / fastest - 1):.1f} % over "
+               "the fastest" if ms_plan is not None else "not measured")
+            + f"  [{card}]")
+    if losses:
+        log(f"  the plan over the fastest plan at {len(losses)} points: "
+            f"at most {100 * max(losses):.1f} %, mean "
+            f"{100 * sum(losses) / len(losses):.1f} %  [{card}]")
+    log("  -- K1's wrapper on the host (2048x2048 main path; median of "
+        "2,000 calls, host clock, the queue drained every 100 calls): the "
+        "wrapper, the launch with its plan (the wrapper less its checks, "
+        "plan and count), the plan (cached), the SM count")
+    plan_m = K.encode_rows_plan(n_blocks, L, W, sms)
+    for label, fn in (
+            ("encode_stream_rows", lambda: K.encode_stream_rows(flat, W)),
+            ("_encode_rows(plan)", lambda: K._encode_rows(flat, W, plan_m)),
+            ("encode_rows_plan", lambda: K.encode_rows_plan(
+                n_blocks, L, W, sms)),
+            ("_multiprocessors", lambda: K._multiprocessors(dev))):
+        log(f"  {label}: {host_us(fn):.2f} us  [{card}]")
     log("  -- K3 at other tiles than its plan's (uncounted launches): the "
         "2048x2048 stream at L = 64 and BASELINE (3)'s d = 24 stream at "
         "L = 576")

@@ -63,10 +63,14 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I32 = ctypes.c_int32
 _SIGNATURES = {
-    # levels, n, L, W, rows, blk_bytes, device, stream
-    "jt_encode_rows": (_P, _I64, _I32, _I32, _P, _P, _I32, _P),
-    # cbits, vhi, vlo, n, L + 1, W, rows, device, stream
-    "jt_encode_tables": (_P, _P, _P, _I64, _I32, _I32, _P, _I32, _P),
+    # levels, n, L, W, lanes, tile, smem rows, rows, blk_bytes, device,
+    # stream
+    "jt_encode_rows": (_P, _I64, _I32, _I32, _I32, _I32, _I32, _P, _P, _I32,
+                       _P),
+    # cbits, vhi, vlo, n, L + 1, W, lanes, tile, smem rows, rows, device,
+    # stream
+    "jt_encode_tables": (_P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _P,
+                         _I32, _P),
     # rows, blk_bytes, n, W, out, cap, tile status scratch, device, stream
     "jt_deposit_rows": (_P, _P, _I64, _I32, _P, _I64, _P, _I32, _P),
     # stream bytes, nbytes, starts, n, L, tile, halo, out, device, stream
@@ -240,10 +244,102 @@ def _to_i32_words(w: torch.Tensor) -> torch.Tensor:
 # K1: levels -> stream-word rows + block bytes (csrc/encode_stream.cu)
 # ---------------------------------------------------------------------------
 
+# K1's and K9's plan (csrc/bit_writer.cuh): a group of `lanes` lanes writes
+# one block's row, each lane owning ceil(S / lanes) consecutive slots of the
+# block's S (L levels for K1, L + 1 table slots for K9).  One lane a block
+# walks its slots once, writing as it counts; a group walks them twice
+# (count, then write), shorter, and joins its pieces by warp scans.  One
+# lane a block pays once there are ENC_ONE_LANE_BLOCKS blocks an SM per 64
+# slots a block (a longer walk needs more blocks to hide it); below that
+# the plan takes the fewest lanes of ENC_LANES that give the card
+# ENC_WAVE_LANES lanes an SM, or one slot a lane.  Both numbers were fitted
+# on an H100 (132 SMs) to the device times of every group size at the 43
+# (kernel, L, N) points that chip_smoke.py's plan sweep times, L = 9 ...
+# 1,024 and N = 768 ... 350,892 (PERF.md, K1's and K9's plan): they put
+# each point within 28 % of its fastest group size, 4 % on average.  Two
+# lanes a block never won, so there is no kernel for them.  A thread block
+# of at most ENC_THREADS threads (the kernels' kEncThreads) takes a tile
+# of consecutive blocks and stages their slots (4 bytes each, at an odd
+# stride; K9 both its group lengths and their low words), their block
+# bytes and, up to ENC_ROW_MAX_WORDS words a row (kEncRowMaxWords), their
+# rows in shared memory; the tile halves while that exceeds
+# ENC_STAGE_BYTES, the lanes growing to keep a warp, down to one block.
+# Longer rows are written in global memory by the same lanes.
+# ENC_MAX_L bounds the slots so a one-block tile fits the card's shared
+# memory (ENC_MAX_SMEM, kEncMaxSmem).
+ENC_THREADS = 128
+ENC_LANES = (1, 4, 8, 16, 32)
+ENC_ONE_LANE_BLOCKS = 96
+ENC_WAVE_LANES = 256
+ENC_STAGE_BYTES = 48 << 10
+ENC_ROW_MAX_WORDS = 512
+ENC_MAX_SMEM = 227 << 10
+ENC_MAX_L = 1 << 14
+
+
+class EncodeRowsPlan(NamedTuple):
+    lanes: int        # lanes a block (one of ENC_LANES)
+    tile: int         # consecutive blocks a thread block writes
+    smem_rows: bool   # rows staged in shared memory, else written in place
+
+
+def encode_rows_smem(S: int, W: int, plan: EncodeRowsPlan,
+                     tables: int = 1) -> int:
+    """Shared-memory bytes of a tile (``EncTile::smem_bytes``): its staged
+    rows, block bytes and ``tables`` tables of slots (K1: 1, K9: 2), each
+    region a multiple of 16 bytes but the tables, at an odd stride."""
+    r4 = lambda x: -(-x // 4) * 4                       # noqa: E731
+    return 4 * ((r4(plan.tile * W) if plan.smem_rows else 0)
+                + r4(plan.tile) + tables * plan.tile * (S | 1))
+
+
+def encode_rows_fit(lanes: int, S: int, W: int,
+                    tables: int = 1) -> EncodeRowsPlan:
+    """The tile for ``lanes`` lanes a block: ENC_THREADS threads' worth,
+    halved while its shared memory exceeds ENC_STAGE_BYTES (the lanes
+    growing to keep a warp)."""
+    plan = EncodeRowsPlan(lanes, max(ENC_THREADS // lanes, 1),
+                          W <= ENC_ROW_MAX_WORDS)
+    while (plan.tile > 1
+           and encode_rows_smem(S, W, plan, tables) > ENC_STAGE_BYTES):
+        plan = plan._replace(tile=plan.tile // 2)
+        if plan.tile * plan.lanes < 32:
+            plan = plan._replace(lanes=max(2 * plan.lanes, ENC_LANES[1]))
+    return plan
+
+
+@functools.lru_cache(maxsize=256)
+def encode_rows_plan(n: int, S: int, W: int, sms: int,
+                     tables: int = 1) -> EncodeRowsPlan:
+    """How K1 (S = L levels, one table) and K9 (S = L + 1 slots, two
+    tables) cut n blocks into thread blocks at row width W on a card of
+    ``sms`` SMs (see the constants above)."""
+    lanes = 1
+    if n * 64 < ENC_ONE_LANE_BLOCKS * sms * max(S, 64):
+        lanes = next((g for g in ENC_LANES[1:]
+                      if g >= S or n * g >= ENC_WAVE_LANES * sms),
+                     ENC_LANES[-1])
+    return encode_rows_fit(lanes, S, W, tables)
+
+
+def _check_width(W: int) -> None:
+    if W < 1:
+        raise ValueError(f"row width W must be >= 1 word, got {W}")
+
+
+def _check_slots(S: int) -> None:
+    """The kernels' bound on a block's slots (the plain versions have
+    none)."""
+    if S > ENC_MAX_L:
+        raise ValueError(f"{S} slots a block: at most {ENC_MAX_L} on the "
+                         "card")
+
+
 class _RowWriter:
-    """Vectorised counterpart of ``csrc/bit_writer.cuh``'s BitWriter: one
-    int64 bit accumulator per block; words leave it at 32 bits, and words
-    past a row's W go to a sink column (counted, not stored)."""
+    """Vectorised serial bit writer (the plain versions' counterpart of
+    ``csrc/bit_writer.cuh``): one int64 bit accumulator per block; words
+    leave it at 32 bits, and words past a row's W go to a sink column
+    (counted, not stored)."""
 
     def __init__(self, n: int, W: int, device):
         z = torch.zeros(n, dtype=torch.int64, device=device)
@@ -306,25 +402,38 @@ def encode_stream_rows_plain(levels: torch.Tensor, W: int):
     return bw.finish()
 
 
-def encode_stream_rows(levels: torch.Tensor, W: int):
-    """(N, L) int32 levels -> ((N, W) int32 stream-word rows, (N,) int32
-    block bytes).  Row i is block i's bytes, top-justified big-endian words,
-    zero-padded; a block longer than 4*W bytes is truncated in its row (its
-    count stays exact), so callers check ``blk_bytes <= 4*W``.  Levels must
-    satisfy |a| <= 16383 (callers check the max first)."""
-    _check(levels, "levels", torch.int32, 2)
-    if W < 1:
-        raise ValueError(f"row width W must be >= 1 word, got {W}")
-    if not _on_cuda(levels):
-        return encode_stream_rows_plain(levels, W)
+def _encode_rows(levels: torch.Tensor, W: int, plan: EncodeRowsPlan):
+    """Launch K1 on the levels' device with ``plan`` (the wrapper counts
+    the launch)."""
     n, L = levels.shape
     rows = torch.empty((n, W), dtype=torch.int32, device=levels.device)
     blk_bytes = torch.empty(n, dtype=torch.int32, device=levels.device)
     if n:
         _launch("jt_encode_rows", levels.device, levels.data_ptr(), n, L, W,
-                rows.data_ptr(), blk_bytes.data_ptr())
-        _count(encode_stream_rows)
+                plan.lanes, plan.tile, int(plan.smem_rows), rows.data_ptr(),
+                blk_bytes.data_ptr())
     return rows, blk_bytes
+
+
+def encode_stream_rows(levels: torch.Tensor, W: int):
+    """(N, L) int32 levels -> ((N, W) int32 stream-word rows, (N,) int32
+    block bytes).  Row i is block i's bytes, top-justified big-endian words,
+    zero-padded; a block longer than 4*W bytes is truncated in its row (its
+    count stays exact), so callers check ``blk_bytes <= 4*W``.  Levels must
+    satisfy |a| <= 16383 (callers check the max first).  On the card L is
+    at most ``ENC_MAX_L``, and the kernel writes every word of both
+    outputs (one launch a call)."""
+    _check(levels, "levels", torch.int32, 2)
+    _check_width(W)
+    if not _on_cuda(levels):
+        return encode_stream_rows_plain(levels, W)
+    n, L = levels.shape
+    _check_slots(L)
+    out = _encode_rows(levels, W, encode_rows_plan(
+        n, L, W, _multiprocessors(levels.device)))
+    if n:
+        _count(encode_stream_rows)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -353,6 +462,20 @@ def encode_stream_rows_tables_plain(cbits: torch.Tensor, vhi: torch.Tensor,
     return bw.finish()[0]
 
 
+def _encode_tables(cbits: torch.Tensor, vhi: torch.Tensor,
+                   vlo: torch.Tensor, W: int,
+                   plan: EncodeRowsPlan) -> torch.Tensor:
+    """Launch K9 on the tables' device with ``plan`` (the wrapper counts
+    the launch)."""
+    n, L1 = cbits.shape
+    rows = torch.empty((n, W), dtype=torch.int32, device=cbits.device)
+    if n:
+        _launch("jt_encode_tables", cbits.device, cbits.data_ptr(),
+                vhi.data_ptr(), vlo.data_ptr(), n, L1, W, plan.lanes,
+                plan.tile, int(plan.smem_rows), rows.data_ptr())
+    return rows
+
+
 def encode_stream_rows_tables(cbits: torch.Tensor, vhi: torch.Tensor,
                               vlo: torch.Tensor, W: int) -> torch.Tensor:
     """(N, L+1) int32 unit-group tables (``entropy/device_codec.py:
@@ -366,15 +489,14 @@ def encode_stream_rows_tables(cbits: torch.Tensor, vhi: torch.Tensor,
     if vhi.shape != cbits.shape or vlo.shape != cbits.shape:
         raise ValueError(f"tables of shapes {tuple(cbits.shape)}, "
                          f"{tuple(vhi.shape)}, {tuple(vlo.shape)} differ")
-    if W < 1:
-        raise ValueError(f"row width W must be >= 1 word, got {W}")
+    _check_width(W)
     if not _on_cuda(cbits, vhi, vlo):
         return encode_stream_rows_tables_plain(cbits, vhi, vlo, W)
     n, L1 = cbits.shape
-    rows = torch.empty((n, W), dtype=torch.int32, device=cbits.device)
+    _check_slots(L1)
+    rows = _encode_tables(cbits, vhi, vlo, W, encode_rows_plan(
+        n, L1, W, _multiprocessors(cbits.device), tables=2))
     if n:
-        _launch("jt_encode_tables", cbits.device, cbits.data_ptr(),
-                vhi.data_ptr(), vlo.data_ptr(), n, L1, W, rows.data_ptr())
         _count(encode_stream_rows_tables)
     return rows
 
