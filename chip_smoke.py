@@ -54,7 +54,8 @@ result):
    the adversarial levels' stream, 24 single-byte mutations of the image
    stream and pure garbage bytes: the end table, the starts and the checks
    must be bit-equal to the plain versions', the two-sweep end table
-   (``end_table(cap=12)``: K6' twice) bit-equal to the single sweep's, the
+   (``end_table(cap=c)``: K6' twice, c in 1, 4, 12, 1000 and the unit
+   budget b and b - 1) bit-equal to the single sweep's, the
    starts must be the host C++ scanner's wherever it accepts every band,
    and a truncated middle band must fail the check.  Then the redesigned
    kernels at their edges, bit-equal to the plain versions: K7 and K8, in
@@ -67,8 +68,15 @@ result):
    zero-run chains, 2.9 KB blocks at L = 1024 (walks past the halo read
    global memory), and K6-K8 on the d = 24 stream of BASELINE (3) and an
    adversarial L = 576 stream.  K6' (the capped and resumed walkers) is
-   held against its plain version on every byte of the image stream at
-   caps 4 and 12, every live walker resumed.  K1 on BASELINE (3)'s d = 24
+   held against its plain versions, bit-equal, on every byte of the image
+   stream, a buffer 4,099 bytes longer than its stream, a one-block stream
+   below one tile, uniform garbage, the d = 24 stream and the adversarial
+   L = 576 stream, at the same caps: the list form
+   (``scan_walk_resume``) on q = every byte, every walker live at the cap
+   resumed by the list form (all, and the first half by ``n_live``), the
+   range form (``scan_walk_capped``: sweep 1's table, and its survivors
+   as a set) and the list form's table over them (sweep 2), and the
+   tables equal to the single sweep's.  K1 on BASELINE (3)'s d = 24
    levels (N = 1,452, L = 576; its own line in the JSON), and K1 and K9
    at their design's edges (csrc/bit_writer.cuh: groups of 1, 4, 8, 16 or
    32 lanes a block, lane-owned slot ranges, rows staged in shared memory up to
@@ -147,7 +155,13 @@ result):
    lanes, modelled);
    the two-sweep end table at caps 8, 12 and 20 against the single sweep
    on both main-path streams, and the device kernels of one call of each
-   end table and each ``encode_rows`` (torch.profiler); and the step
+   end table and each ``encode_rows`` (torch.profiler; ``end_table(cap=12)``
+   checked at two kernels and one memset at most, on both streams); one
+   call's device time (CUDA graph) of the end table at cap 0 and
+   ``TWO_SWEEP_CAPS``, each sweep alone and the survivors, beside K6's
+   byte bound, with sweep 2 on grids of 2, 4 and 8 eighths of a wave
+   (``K.SCAN_RESUME_EIGHTHS`` patched, each table checked bit-equal), and
+   of the list form on every byte at cap 12 beside its bound; and the step
    pipeline's band round trip against ``compress_band`` /
    ``decompress_band``.  Also the encode by stage (upload, transform,
    phase-1 stats, "K1 + K2", download, pack; the main path and (4b), whose
@@ -168,7 +182,9 @@ result):
    of K4 and K5 the TF32 tensor-core rate; and for K4 (main path and d = 24, its own
    line) and K5 ``library_ms``, a full-f32 ``torch.matmul`` of the same
    operands; their entries also carry ``error_eps32``, and K1's (main
-   path and L = 576, its own line), K9's, K3's, K4's and K5's one call's
+   path and L = 576, its own line), K9's, K3's, K4's, K5's, K6's, the two
+   sweeps of K6' in ``end_table(cap=12)`` (``scan_walk_capped`` and
+   ``scan_walk_resume``, each with its own bytes), K7's and K8's one call's
    device time (``device_ms``: calls captured in a CUDA graph and
    replayed, since back-to-back wrapper calls include the wrappers' host
    work).  K5's product is also timed without its epilogue
@@ -211,6 +227,8 @@ KERNEL_INFO = {   # wrapper name -> (source, Pallas kernel it replaces)
                       "jpeg_tpu/ops/pallas_kernels.py:63"),
     "scan_walk": ("jpeg_tpu_torch/csrc/scan_walk.cu",
                   "jpeg_tpu/ops/pallas_kernels.py:857"),
+    "scan_walk_capped": ("jpeg_tpu_torch/csrc/scan_walk.cu",
+                         "jpeg_tpu/ops/pallas_kernels.py:751"),
     "scan_walk_resume": ("jpeg_tpu_torch/csrc/scan_walk.cu",
                          "jpeg_tpu/ops/pallas_kernels.py:751"),
     "chase_starts": ("jpeg_tpu_torch/csrc/chase.cu",
@@ -229,12 +247,18 @@ TABLES_PATH = ("encode_stream_rows_tables", "deposit_rows")
 # Kernels whose line also carries one call's device time (a CUDA graph).
 DEVICE_TIMED = ("encode_stream_rows", "encode_stream_rows_tables", K1_L576,
                 "decode_stream_blocks", "decode_blocks", "encode_blocks",
-                K4_D24)
+                K4_D24, "scan_walk", "scan_walk_capped", "scan_walk_resume",
+                "chase_starts", "chase_starts_multi")
 # K1's and K9's edge checks: levels per block (K9 where L <= 75), and the
 # block counts checked besides the plan's tile T - 1 and T + 1.
 K1_EDGE_L = (9, 16, 64, 576, 1024)
 K1_EDGE_N = (1, 31, 32, 33, 49153)
 TWO_SWEEP_CAPS = (8, 12, 20)
+# The caps of K6' checked against the plain versions and the single sweep,
+# besides the unit budget b and b - 1.
+K6R_EDGE_CAPS = (1, 4, 12, 1000)
+# Sweep 2's grids timed, in eighths of a wave (K.SCAN_RESUME_EIGHTHS).
+K6R_EIGHTHS = (2, 4, 8)
 # The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): the
 # bound of a kernel is the larger of its bytes over the memory rate and its
 # operations over the card's peak rate for them: the f32 (non-tensor-core)
@@ -556,11 +580,10 @@ def host_us(fn, calls: int = 2000) -> float:
     return float(np.median(times)) * 1e6
 
 
-def device_kernels(fn, top: int = 6):
-    """The device kernels one call of ``fn`` runs, from torch.profiler's
-    CUDA events (not its ``key_averages()``, which counts device time twice):
-    (their number, their summed time in us, a line naming the ``top``
-    longest)."""
+def device_events(fn) -> dict:
+    """The device work one call of ``fn`` runs, from torch.profiler's CUDA
+    events (not its ``key_averages()``, which counts device time twice):
+    {name: (summed us, count)}, memsets included."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -573,6 +596,15 @@ def device_kernels(fn, top: int = 6):
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             us, n = agg.get(ev.name, (0.0, 0))
             agg[ev.name] = (us + ev.time_range.elapsed_us(), n + 1)
+    return agg
+
+
+def device_kernels(fn, top: int = 6, agg=None):
+    """The device kernels one call of ``fn`` runs (:func:`device_events`,
+    or ``agg`` when given): (their number, their summed time in us, a line
+    naming the ``top`` longest)."""
+    if agg is None:
+        agg = device_events(fn)
     total = sum(us for us, _ in agg.values())
     count = sum(n for _, n in agg.values())
     head = sorted(agg.items(), key=lambda kv: -kv[1][0])[:top]
@@ -835,7 +867,8 @@ def main() -> int:
     # Bound again in scan_kernels' own scope for its timing closures:
     # main() reassigns nb in phase 4.
     band_blocks = n_blocks // 3
-    scan_err = dict.fromkeys(HOST_FREE_PATH + ("scan_walk_resume",), 0)
+    scan_err = dict.fromkeys(
+        HOST_FREE_PATH + ("scan_walk_capped", "scan_walk_resume"), 0)
 
     def band_ends(bb) -> list:
         return np.cumsum(bb.to(torch.int64).reshape(3, -1).sum(1).cpu()
@@ -854,18 +887,24 @@ def main() -> int:
             s0 = e
         return np.concatenate(out)
 
+    def two_sweep_caps(L_c):
+        b = K._walk_units(L_c)
+        return sorted({*K6R_EDGE_CAPS, b - 1, b})
+
     def scan_kernels(label, buf, ends, quiet=False, L=L, nb=band_blocks):
         """K6-K8 vs their plain versions (bit-equal) on one buffer of three
-        bands of nb blocks, the two-sweep end table (K6' at cap 12) vs the
-        single sweep (bit-equal), and the starts vs the host C++ scanner's.
-        Returns the device check and the timing closures on these inputs."""
+        bands of nb blocks, the two-sweep end table (K6' twice, at every cap
+        of ``two_sweep_caps``) vs the single sweep (bit-equal), and the
+        starts vs the host C++ scanner's.  Returns the device check and the
+        timing closures on these inputs."""
         n = buf.shape[0]
         s0s_l = [0] + ends[:-1]
         targets = torch.tensor(ends, dtype=torch.int64, device=dev)
         s0s = torch.tensor(s0s_l, dtype=torch.int64, device=dev)
         E_k = K.scan_walk(buf, n, L)
         E_p = K.scan_walk_plain(buf, n, L)
-        E_2 = DS.end_table(buf, n, L, cap=12)
+        err_2 = max(max_diff(DS.end_table(buf, n, L, cap=c), E_k)
+                    for c in two_sweep_caps(L))
         st_k, ok_k = K.chase_starts_multi(E_k, targets, s0s, nb)
         st_p, ok_p = K.chase_starts_multi_plain(E_k, targets, s0s, nb)
         one_k = [K.chase_starts(E_k, t, s0, nb) for t, s0 in zip(ends, s0s_l)]
@@ -873,7 +912,8 @@ def main() -> int:
                  for t, s0 in zip(ends, s0s_l)]
         errs = {
             "scan_walk": max_diff(E_k, E_p),
-            "scan_walk_resume": max_diff(E_2, E_k),
+            "scan_walk_capped": err_2,
+            "scan_walk_resume": err_2,
             "chase_starts_multi": max(max_diff(st_k, st_p),
                                       max_diff(ok_k, ok_p)),
             "chase_starts": max(max(max_diff(a, c), max_diff(b, d))
@@ -884,7 +924,8 @@ def main() -> int:
         want = host_starts(buf.cpu().numpy().tobytes(), ends, L, nb)
         ok = bool(ok_k.all())
         what = (f"K6-K8 {label}: end table, starts and checks bit-equal to "
-                f"plain; two-sweep end table (cap 12) bit-equal; check {ok} "
+                f"plain; two-sweep end table (caps {two_sweep_caps(L)}) "
+                f"bit-equal; check {ok} "
                 f"= host C++ scanner's {want is not None}; starts = host "
                 "starts")
         good = (not any(errs.values()) and ok == (want is not None)
@@ -1050,13 +1091,23 @@ def main() -> int:
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rng_e = np.random.default_rng(11)
     tail = torch.from_numpy(rng_e.integers(0, 256, 4099, dtype=np.uint8))
-    walk_edge("on a buffer 4,099 garbage bytes longer than n_bytes",
-              torch.cat([img_buf, tail.to(dev)]), P_img, L, img_ends[0],
-              band_blocks)
+    longer = torch.cat([img_buf, tail.to(dev)])
+    walk_edge("on a buffer 4,099 garbage bytes longer than n_bytes", longer,
+              P_img, L, img_ends[0], band_blocks)
     one = native_codec.encode_levels(adversarial_levels(6, L, seed=5)[1:2])
-    walk_edge("on a stream of one block, shorter than a tile",
-              torch.frombuffer(bytearray(one), dtype=torch.uint8).to(dev),
+    one_buf = torch.frombuffer(bytearray(one), dtype=torch.uint8).to(dev)
+    walk_edge("on a stream of one block, shorter than a tile", one_buf,
               len(one), L, len(one), 1)
+    # The streams K6' is checked on: (buffer, n_bytes, L)
+    resume_streams = {
+        "image stream": (img_buf, P_img, L),
+        "buffer 4,099 garbage bytes longer than its stream": (longer, P_img,
+                                                              L),
+        f"one-block stream ({len(one)} bytes, below one tile)": (
+            one_buf, len(one), L),
+        "200-byte prefix of the image stream (below one tile)": (
+            img_buf[:200].clone(), 200, L),
+        "uniform garbage": (garbage.to(dev), garbage.shape[0], L)}
     lv_ch = np.zeros((3000, 576), np.int32)
     lv_ch[:, 575] = rng_e.integers(1, 300, 3000)
     chains = native_codec.encode_levels(lv_ch)
@@ -1091,48 +1142,136 @@ def main() -> int:
         ok, _ = scan_kernels(label, buf24, ends24, L=lvs.shape[2],
                              nb=lvs.shape[1])
         check(ok, f"K6+K8 accept the {label} ({ends24[-1]} bytes)")
+        resume_streams[label] = (buf24, ends24[-1], lvs.shape[2])
 
-    def resume_kernels(buf, n_b):
-        """K6' vs its plain version (bit-equal) on every byte of a stream at
-        caps 4 and 12, then every walker live at the cap resumed from its
-        carried state, kernel and plain alike: the single sweep's table."""
-        q = torch.arange(n_b, dtype=torch.int64, device=dev)
-        E1 = K.scan_walk(buf, n_b, L)
-        budget = K._walk_units(L)
-        err = 0
-        for cap in (4, 12):
-            got = K.scan_walk_resume(buf, n_b, L, q, cap)
-            ones = torch.ones((), dtype=torch.int64, device=dev)
-            plain = K.scan_walk_resume_plain(
-                buf, n_b, L, q, cap, *(torch.zeros_like(q, dtype=torch.int32)
-                                       for _ in range(2)), ones * n_b)
-            err = max(err, *(max_diff(g, p) for g, p in zip(got, plain)))
-            live = got[0] == -2
-            ql, cl, wl = q[live], got[1][live], got[2][live]
-            res = K.scan_walk_resume(buf, n_b, L, ql, budget - cap, cl, wl)
-            res_p = K.scan_walk_resume_plain(buf, n_b, L, ql, budget - cap,
-                                             cl, wl, ones * ql.shape[0])
-            err = max(err, *(max_diff(g, p) for g, p in zip(res, res_p)))
-            length = got[0].clone()
-            length[live] = res[0]
-            E = torch.where(length >= 0, q + length, n_b + 1)
-            check(err == 0 and torch.equal(E.to(torch.int32), E1[:n_b]),
-                  f"K6' at cap {cap} on the {n_b}-byte stream: lengths, bits "
-                  f"and indices bit-equal to plain; {int(live.sum())} "
-                  "walkers resumed, kernel and plain alike; the single "
-                  "sweep's end table")
-        return err, {"scan_walk_resume": dict(
-            fn=lambda: K.scan_walk_resume(buf, n_b, L, q, 12),
-            plain=lambda: K.scan_walk_resume_plain(
-                buf, n_b, L, q, 12, *(torch.zeros_like(q, dtype=torch.int32)
-                                      for _ in range(2)),
-                torch.full((), n_b, dtype=torch.int64, device=dev)),
-            nbytes=n_b + 8 * n_b + 12 * n_b,
-            shape=f"{n_b} walkers, cap 12, stream {n_b} bytes")}
+    def survivor_rows(surv):
+        """A survivor list's first n (byte, bits, index) rows, by byte."""
+        k = int(surv.n[0])
+        order = torch.argsort(surv.q[:k])
+        return torch.stack([surv.q[:k][order], surv.c[:k][order].long(),
+                            surv.w[:k][order].long()])
 
-    err_r, resume_results = resume_kernels(img_buf, img_ends[-1])
-    scan_err["scan_walk_resume"] = max(scan_err["scan_walk_resume"], err_r)
-    results.update(resume_results)
+    def resume_kernels(label, buf, n_b, L_r):
+        """K6' vs its plain versions (bit-equal) on every byte of a buffer
+        at each cap of ``two_sweep_caps``: the list form on q = every byte;
+        the walkers live at the cap resumed by the list form from their
+        carried state, all of them and the first half (n_live), kernel and
+        plain alike, giving the single sweep's table; the range form
+        (sweep 1's table, and its survivors as a set), the list form's
+        table output over them (sweep 2) and end_table(cap).  Returns the
+        largest differences from the plain versions: (range form, list
+        form)."""
+        P = buf.shape[0]
+        q = torch.arange(P, dtype=torch.int64, device=dev)
+        zero = torch.zeros(P, dtype=torch.int32, device=dev)
+        one_t = torch.ones((), dtype=torch.int64, device=dev)
+        E1 = K.scan_walk(buf, n_b, L_r)
+        budget = K._walk_units(L_r)
+        err_c, err_r, good, live_at = 0, 0, True, []
+        for cap in two_sweep_caps(L_r):
+            steps = min(cap, budget)
+            plain = K.scan_walk_resume_plain(buf, n_b, L_r, q, steps, zero,
+                                             zero, one_t * P)
+            got = K.scan_walk_resume(buf, n_b, L_r, q, cap)
+            err_r = max(err_r, *(max_diff(g, p) for g, p in zip(got, plain)))
+            live = plain[0] == -2
+            k = int(live.sum())
+            live_at.append(k)
+            length = plain[0].clone()
+            if k:
+                ql, cl, wl = q[live], plain[1][live], plain[2][live]
+                res = K.scan_walk_resume(buf, n_b, L_r, ql, budget - cap, cl,
+                                         wl)
+                res_p = K.scan_walk_resume_plain(buf, n_b, L_r, ql,
+                                                 budget - cap, cl, wl,
+                                                 one_t * k)
+                part = K.scan_walk_resume(buf, n_b, L_r, ql, budget - cap, cl,
+                                          wl, n_live=one_t * (k // 2))
+                err_r = max(err_r,
+                            *(max_diff(g, p) for g, p in zip(res, res_p)),
+                            *(max_diff(g[:k // 2], p[:k // 2])
+                              for g, p in zip(part, res_p)))
+                good &= (bool((part[0][k // 2:] == -2).all())
+                         and torch.equal(part[1][k // 2:], cl[k // 2:])
+                         and torch.equal(part[2][k // 2:], wl[k // 2:]))
+                length[live] = res_p[0]
+            good &= torch.equal(
+                torch.where(length >= 0, q + length, P + 1).to(torch.int32),
+                E1[:P])
+            E_c, surv = K.scan_walk_capped(buf, n_b, L_r, cap)
+            E_cp, surv_p = K.scan_walk_capped_plain(buf, n_b, L_r, cap)
+            err_c = max(err_c, max_diff(E_c, E_cp))
+            good &= (surv is None) == (surv_p is None) == (cap >= budget)
+            if surv is not None:
+                good &= torch.equal(survivor_rows(surv),
+                                    survivor_rows(surv_p))
+                K.scan_walk_resume(buf, n_b, L_r, surv.q, budget - cap,
+                                   surv.c, surv.w, surv.n, table=E_c)
+                K.scan_walk_resume_plain(buf, n_b, L_r, surv_p.q,
+                                         budget - cap, surv_p.c, surv_p.w,
+                                         surv_p.n, table=E_cp)
+                err_r = max(err_r, max_diff(E_c, E_cp))
+            good &= torch.equal(E_c, E1) and torch.equal(
+                DS.end_table(buf, n_b, L_r, cap=cap), E1)
+        check(err_c == 0 and err_r == 0 and good,
+              f"K6' on the {label} ({P}-byte buffer, n_bytes {n_b}, L = "
+              f"{L_r}), caps {two_sweep_caps(L_r)}: the list form on every "
+              f"byte bit-equal to plain; {live_at} walkers live at the caps "
+              "resumed by the list form (all, and the first half by "
+              "n_live), kernel and plain alike; the range form's table and "
+              "survivors (sweep 1) and the list form's table over them "
+              "(sweep 2) bit-equal to plain; the single sweep's table")
+        return err_c, err_r
+
+    for label_r, (buf_r, n_r, L_r) in resume_streams.items():
+        errs_r = resume_kernels(label_r, buf_r, n_r, L_r)
+        for name_r, e_r in zip(("scan_walk_capped", "scan_walk_resume"),
+                               errs_r):
+            scan_err[name_r] = max(scan_err[name_r], e_r)
+
+    def resumed_bytes(q, c0, out, n_b):
+        """Stream bytes that resumed walks cover, counted once: each from
+        the byte of its resume position to the last byte it reads (the
+        header it stops at, unless it ran out of units there)."""
+        length, c_end = out[0].long(), out[1].long()
+        first = (q + (c0.long() >> 3)).clamp(max=n_b)
+        last = (q + torch.where(length == -2, c_end + 7, c_end + 15)
+                // 8).clamp(max=n_b)
+        ones = torch.ones_like(q)
+        d = torch.zeros(n_b + 1, dtype=torch.int64, device=dev)
+        d.index_add_(0, first, ones).index_add_(0, last, -ones)
+        return int((d.cumsum(0)[:n_b] > 0).sum())
+
+    # The K6' rows: the two kernels one end_table(cap=12) call launches on
+    # the image stream, each against the bytes it moves.  Sweep 1 reads the
+    # stream and writes the table, its survivors (16 bytes each) and their
+    # count; sweep 2 reads the count, the survivors and the stream bytes
+    # their resumed walks cover, and writes their table entries.
+    cap_r, steps_r = 12, K._walk_units(L) - 12
+    E_r, surv_r = K.scan_walk_capped(img_buf, P_img, L, cap_r)
+    n_surv = int(surv_r.n[0])
+    span_r = resumed_bytes(surv_r.q[:n_surv], surv_r.c[:n_surv],
+                           K.scan_walk_resume(img_buf, P_img, L,
+                                              surv_r.q[:n_surv], steps_r,
+                                              surv_r.c[:n_surv],
+                                              surv_r.w[:n_surv]), P_img)
+    results["scan_walk_capped"] = dict(
+        fn=lambda: K.scan_walk_capped(img_buf, P_img, L, cap_r),
+        plain=lambda: K.scan_walk_capped_plain(img_buf, P_img, L, cap_r),
+        nbytes=P_img + 4 * (P_img + 2) + 16 * n_surv + 8,
+        shape=f"sweep 1 of end_table(cap=12): {P_img} walkers, {n_surv} "
+              f"survivors, stream {P_img} bytes")
+    results["scan_walk_resume"] = dict(
+        fn=lambda: K.scan_walk_resume(img_buf, P_img, L, surv_r.q, steps_r,
+                                      surv_r.c, surv_r.w, surv_r.n,
+                                      table=E_r),
+        plain=lambda: K.scan_walk_resume_plain(
+            img_buf, P_img, L, surv_r.q, steps_r, surv_r.c, surv_r.w,
+            surv_r.n, table=E_r),
+        nbytes=8 + 20 * n_surv + span_r,
+        shape=f"sweep 2 of end_table(cap=12): {n_surv} survivors resumed "
+              f"for {steps_r} units, {span_r} stream bytes")
+    q_img = torch.arange(P_img, dtype=torch.int64, device=dev)
 
     dec = BandDecoder(cfg).to(dev)
     pix_k = K.decode_blocks(flat, dec.op_t, dec.deq)
@@ -1808,10 +1947,12 @@ def main() -> int:
     counts_2s = K.launch_counts()
     log(f"  launch counts over the two-sweep run: {counts_2s}")
     check(all(torch.equal(two[hw], single[hw]) for hw in sizes)
-          and counts_2s["scan_walk_resume"] == 2 * len(sizes)
+          and counts_2s["scan_walk_capped"] == len(sizes)
+          and counts_2s["scan_walk_resume"] == len(sizes)
           and counts_2s["scan_walk"] == 0,
           "end_table(cap=12) on both main-path streams: bit-equal to the "
-          "single sweep, K6' launched twice per stream and K6 never")
+          "single sweep, K6' launched twice per stream (each sweep once) "
+          "and K6 never")
 
     from jpeg_tpu_torch import compress_band, decompress_band, steps
     h, w = SIZES[0]
@@ -1972,7 +2113,8 @@ def main() -> int:
     launches_of["encode_blocks"] = k5_launches
     launches_of["encode_stream_rows_tables"] = counts_tb[
         "encode_stream_rows_tables"]
-    launches_of["scan_walk_resume"] = counts_2s["scan_walk_resume"]
+    launches_of.update({n: counts_2s[n] for n in ("scan_walk_capped",
+                                                  "scan_walk_resume")})
     launches_of[K4_D24] = k4_d24_launches
     launches_of[K1_L576] = k1_l576_launches
     kernels = []
@@ -2139,14 +2281,13 @@ def main() -> int:
                                 REPS)
             turns.append(f"{enc_name} {ms:.3f} ms = {mp / ms * 1e3:.1f} MP/s")
         log(f"  {hw[0]}x{hw[1]}: " + "; ".join(turns) + f"  [{card}]")
-    log("  -- end table: single sweep (K6) and two sweeps (K6' twice, "
-        "survivors compacted on the device), mean of 50")
+    log("  -- end table: single sweep (K6) and two sweeps (K6' twice: "
+        "sweep 1 appends its survivors to a list on the device, sweep 2 "
+        "resumes them), mean of 50 back-to-back calls")
     for hw, (s, n) in main_streams.items():
         parts = [f"single {time_ms(lambda: DS.end_table(s, n, L), 50):.4f} ms"]
         for cap in TWO_SWEEP_CAPS:
-            live = int((K.scan_walk_resume(
-                s, n, L, torch.arange(s.shape[0], device=dev), cap)[0]
-                == -2).sum())
+            live = int(K.scan_walk_capped(s, n, L, cap)[1].n[0])
             ms = time_ms(lambda: DS.end_table(s, n, L, cap=cap), 50)
             parts.append(f"cap {cap} {ms:.4f} ms ({live} resumed)")
         parts.append(f"single {time_ms(lambda: DS.end_table(s, n, L), 50):.4f}"
@@ -2174,12 +2315,21 @@ def main() -> int:
     W = -(-int(DC.block_bytes_of(flat).max()) // 4)
     for label, fn in (
             ("end_table(cap=0)", lambda: DS.end_table(s, n, L)),
-            ("end_table(cap=12)", lambda: DS.end_table(s, n, L, cap=12)),
             ("encode_rows(enc='lv')", lambda: DC.encode_rows(flat, W)),
             ("encode_rows(enc='tables')",
              lambda: DC.encode_rows(flat, W, enc="tables"))):
         log(f"  {label}, {SIZES[0][0]}x{SIZES[0][1]}: "
             f"{device_kernels(fn)[2]}  [{card}]")
+    for hw, (s2, n2) in main_streams.items():
+        agg = device_events(lambda: DS.end_table(s2, n2, L, cap=12))
+        count_2s, _, text_2s = device_kernels(None, agg=agg)
+        memsets = sum(c for name, (_, c) in agg.items()
+                      if "memset" in name.lower())
+        log(f"  end_table(cap=12), {hw[0]}x{hw[1]}: {text_2s}  [{card}]")
+        check(count_2s - memsets <= 2 and memsets <= 1,
+              f"one end_table(cap=12) call runs at most two device kernels "
+              f"({count_2s - memsets}) and one memset ({memsets}), "
+              f"{hw[0]}x{hw[1]}")
     for name in ("encode_stream_rows", "encode_stream_rows_tables", K1_L576):
         count_w, _, text_w = device_kernels(results[name]["fn"])
         log(f"  {name} ({results[name].get('shape', 'main path')}): "
@@ -2201,6 +2351,63 @@ def main() -> int:
     ms_d = graph_ms(k5_product)
     log("  encode_blocks' product without its epilogue (encode_blocks_sums): "
         + (f"{ms_d:.4f} ms" if ms_d else "not measured") + f"  [{card}]")
+    ms_d = graph_ms(lambda: K.scan_walk_resume(img_buf, P_img, L, q_img, 12))
+    b21 = bound(21 * P_img)[0]
+    log("  scan_walk_resume's list form, q = every byte of the "
+        f"{P_img}-byte stream, cap 12 (the K6' row's work before the "
+        "two-sweep table had kernels of its own): "
+        + (f"{ms_d:.4f} ms, " if ms_d else "not measured, ")
+        + f"bound {b21:.4f} ms (21 bytes a walker: its stream byte, q, and "
+        "three int32 out)" + (f", {100 * b21 / ms_d:.1f} % of it"
+                              if ms_d else "") + f"  [{card}]")
+
+    def fmt(ms):
+        return f"{ms:.4f}" if ms is not None else "not measured"
+
+    log("  -- the end table's device time, one call (CUDA graph of 20 calls, "
+        "replayed), ms: single sweep (K6) and two sweeps (K6' twice), each "
+        "sweep alone, the survivors; sweep 2 on grids of "
+        f"{K6R_EIGHTHS} eighths of a wave (K.SCAN_RESUME_EIGHTHS; the "
+        f"plan's, {K.SCAN_RESUME_EIGHTHS}, marked *); K6's bound is P bytes "
+        "in and 4(P + 2) out at 3.35 TB/s")
+    plan_eighths = K.SCAN_RESUME_EIGHTHS
+    for hw, (s2, n2) in main_streams.items():
+        P2 = s2.shape[0]
+        budget = K._walk_units(L)
+        E_one = DS.end_table(s2, n2, L)
+        same = True
+        parts = ["single "
+                 + fmt(graph_ms(lambda: DS.end_table(s2, n2, L)))]
+        for cap in TWO_SWEEP_CAPS:
+            E_c, surv = K.scan_walk_capped(s2, n2, L, cap)
+            k = int(surv.n[0])
+            two = graph_ms(lambda: DS.end_table(s2, n2, L, cap=cap))
+            one = graph_ms(lambda: K.scan_walk_capped(s2, n2, L, cap))
+            grids = []
+            try:
+                for eighths in K6R_EIGHTHS:
+                    K.SCAN_RESUME_EIGHTHS = eighths
+                    E_t = E_c.clone()
+                    K.scan_walk_resume(s2, n2, L, surv.q, budget - cap,
+                                       surv.c, surv.w, surv.n, table=E_t)
+                    same &= torch.equal(E_t, E_one)
+                    ms_g = graph_ms(lambda: K.scan_walk_resume(
+                        s2, n2, L, surv.q, budget - cap, surv.c, surv.w,
+                        surv.n, table=E_t))
+                    grids.append(f"{eighths}/8"
+                                 + ("*" if eighths == plan_eighths else "")
+                                 + f" {fmt(ms_g)}")
+            finally:
+                K.SCAN_RESUME_EIGHTHS = plan_eighths
+            parts.append(f"cap {cap} {fmt(two)} (sweep 1 {fmt(one)}, sweep 2 "
+                         + ", ".join(grids) + f"; {k} survivors, "
+                         f"{100 * k / P2:.2f} % of the bytes)")
+        parts.append("single "
+                     + fmt(graph_ms(lambda: DS.end_table(s2, n2, L))))
+        log(f"  {hw[0]}x{hw[1]} stream, {n2} bytes: " + "; ".join(parts)
+            + f"; bound {bound(n2 + 4 * (n2 + 2))[0]:.4f}  [{card}]")
+        check(same, f"  sweep 2 on every grid, {hw[0]}x{hw[1]}: the single "
+              "sweep's table")
     log("  -- K1 and K9 by plan (uncounted launches, one call's device "
         "time, ms): for each group size of K.ENC_LANES the fastest of its "
         "tiles (half, once and twice ENC_THREADS threads' worth, and the "

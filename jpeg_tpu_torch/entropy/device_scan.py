@@ -67,35 +67,18 @@ def end_table_two_sweep(stream: torch.Tensor, n_bytes: int, L: int,
                         cap: int) -> torch.Tensor:
     """:func:`end_table` in two sweeps (kernel K6' twice), for ``cap > 0``.
 
-    Sweep 1 walks every byte for at most ``cap`` units; the walkers still
-    live are compacted on the device (a prefix sum, then a scatter of their
-    bytes into a P-sized index buffer); sweep 2 resumes them for the rest
-    of the host scanner's unit budget, reading their count from device
-    memory, so the host never waits.  The table is the single sweep's, bit
-    for bit."""
-    P = stream.shape[0]
+    Sweep 1 walks every byte for at most ``cap`` units, writes the table
+    and appends the walkers still live to a survivor list on the device;
+    sweep 2 resumes them for the rest of the host scanner's unit budget,
+    reading their count from device memory, and writes their entries.  Two
+    launches and a memset of the count, no glue between them, and the host
+    never waits.  Where ``cap`` covers the budget, sweep 1 alone gives the
+    table.  The table is the single sweep's, bit for bit."""
     budget = K._walk_units(L)
-    cap = min(cap, budget)
-    err = P + 1
-    dev = stream.device
-    q = torch.arange(P, dtype=torch.int64, device=dev)
-    length, c, w = K.scan_walk_resume(stream, n_bytes, L, q, cap)
-    E = torch.full((P + 2,), err, dtype=torch.int32, device=dev)
-    E[:P] = torch.where(length >= 0, q + length, err).to(torch.int32)
-    if cap == budget:            # no budget left: the live walkers fail
-        return E
-    live = length == -2
-    slot = torch.cumsum(live, 0) - 1
-    n_live = slot[-1:] + 1
-    # Survivor k's byte goes to sel[k]; the rest point at P (a walker past
-    # the stream, whose ERR lands on E[P], which is ERR already).
-    sel = torch.full((P + 1,), P, dtype=torch.int64, device=dev)
-    sel[torch.where(live, slot, P)] = q
-    sel = sel[:P]
-    at = sel.clamp(max=P - 1)
-    length2, _, _ = K.scan_walk_resume(stream, n_bytes, L, sel, budget - cap,
-                                       c[at], w[at], n_live)
-    E[sel] = torch.where(length2 >= 0, sel + length2, err).to(torch.int32)
+    E, surv = K.scan_walk_capped(stream, n_bytes, L, cap)
+    if surv is not None:
+        K.scan_walk_resume(stream, n_bytes, L, surv.q, budget - cap, surv.c,
+                           surv.w, surv.n, table=E)
     return E
 
 

@@ -18,6 +18,8 @@ encode_blocks              csrc/encode_blocks.cu    _encode_kernel
 scan_walk                  csrc/scan_walk.cu        _scan_walk_kernel_single
 scan_walk_resume           csrc/scan_walk.cu        _scan_walk_kernel
                                                     (two-sweep form)
+scan_walk_capped           csrc/scan_walk.cu        the same, as sweep 1 of
+                                                    its table
 chase_starts               csrc/chase.cu            _chase_kernel
 chase_starts_multi         csrc/chase.cu            _chase_multi_kernel
 =========================  =======================  ========================
@@ -86,10 +88,14 @@ _SIGNATURES = {
     "jt_encode_blocks_sums": (_P, _P, _I64, _I32, _I32, _P, _I32, _P),
     # stream bytes, P, limit bits, L, tile, halo, end table, device, stream
     "jt_scan_walk": (_P, _I64, _I64, _I32, _I32, _I32, _P, _I32, _P),
-    # stream bytes, P, limit bits, L, q, c0, w0, M, n_live, steps,
-    # lengths, bits, indices, device, stream
-    "jt_scan_walk_resume": (_P, _I64, _I64, _I32, _P, _P, _P, _I64, _P, _I32,
+    # stream bytes, P, limit bits, L, cap, tile, halo, end table,
+    # survivors' bytes, bits, indices and count, device, stream
+    "jt_scan_walk_capped": (_P, _I64, _I64, _I32, _I32, _I32, _I32, _P, _P,
                             _P, _P, _P, _I32, _P),
+    # stream bytes, P, limit bits, L, q, c0, w0, M, n_live, steps, blocks,
+    # end table, lengths, bits, indices, device, stream
+    "jt_scan_walk_resume": (_P, _I64, _I64, _I32, _P, _P, _P, _I64, _P, _I32,
+                            _I32, _P, _P, _P, _P, _I32, _P),
     # end table, P2, target, s0, nb, jump table, anchors, starts, ok,
     # device, stream
     "jt_chase": (_P, _I64, _I64, _I64, _I64, _P, _P, _P, _P, _I32, _P),
@@ -846,11 +852,12 @@ def _walk_units(L: int) -> int:
 
 
 # K6's launch (csrc/scan_walk.cu): threads per block and units a lane walks
-# between refills (the kernel's kThreads and kUnitsPerRound), the largest
-# tile and the most bytes staged past one (a walk that reads further goes
-# on from global memory).  On an NVIDIA H100, tiles sized to fill the card
-# in one wave beat fixed ones of 512 to 4096 bytes on both main-path
-# streams.
+# between refills (the kernel's kThreads and kUnitsPerRound; the forms of
+# K6' walk as many: at cap 12, 4 beat 1, 2, 8 and the cap's own), the
+# largest tile and the most bytes staged past one (a walk that reads
+# further goes on from global memory).  On an NVIDIA H100, tiles sized to
+# fill the card in one wave beat fixed ones of 512 to 4096 bytes on both
+# main-path streams.
 SCAN_THREADS = 256
 SCAN_UNITS_PER_ROUND = 4
 SCAN_TILE_MAX = 4096
@@ -868,24 +875,53 @@ def walk_span_bytes(L: int) -> int:
     return ((_walk_units(L) - 1) * (8 + MAX_SIZE)) // 8 + 2
 
 
+def capped_span_bytes(L: int, cap: int) -> int:
+    """Bytes, from its start byte on, that a walk capped at ``cap`` units
+    can read, and the header it would resume at: ceil((8 + 23 cap) / 8),
+    no more than :func:`walk_span_bytes` (which ``cap=0`` means)."""
+    span = walk_span_bytes(L)
+    if cap <= 0:
+        return span
+    return min(span, -(-(8 + (8 + MAX_SIZE) * cap) // 8))
+
+
 class ScanWalkPlan(NamedTuple):
     tile: int        # table entries (and walkers) per thread block
     halo: int        # bytes staged past the tile, a multiple of 16
 
 
-def scan_walk_plan(P: int, L: int, sms: int) -> ScanWalkPlan:
-    """How K6 cuts a P-byte stream on a card of ``sms`` multiprocessors:
-    the kernel runs one block per tile of the (P + 2)-entry table.  Tiles
-    fill the card in one wave of ``2048 // SCAN_THREADS`` blocks each, but
-    are no smaller than ``SCAN_THREADS`` bytes (a walk per lane) nor larger
-    than ``SCAN_TILE_MAX``.  Each tile is staged with a halo of
-    ``walk_span_bytes(L)`` rounded up to 16 bytes, at most
+def scan_walk_plan(P: int, L: int, sms: int, cap: int = 0) -> ScanWalkPlan:
+    """How K6 (and the range form of K6', capped at ``cap`` units) cuts a
+    P-byte stream on a card of ``sms`` multiprocessors: the kernel runs one
+    block per tile of the (P + 2)-entry table.  Tiles fill the card in one
+    wave of ``2048 // SCAN_THREADS`` blocks each, but are no smaller than
+    ``SCAN_THREADS`` bytes (a walk per lane) nor larger than
+    ``SCAN_TILE_MAX``.  Each tile is staged with a halo of
+    ``capped_span_bytes(L, cap)`` rounded up to 16 bytes, at most
     ``SCAN_HALO_MAX``."""
-    halo = min(_ceil16(walk_span_bytes(L)), SCAN_HALO_MAX)
+    halo = min(_ceil16(capped_span_bytes(L, cap)), SCAN_HALO_MAX)
     wave = sms * (2048 // SCAN_THREADS)
     tile = min(SCAN_TILE_MAX,
                max(SCAN_THREADS, _ceil16(-(-(P + 2) // wave))))
     return ScanWalkPlan(tile, halo)
+
+
+# The list form of K6' runs a persistent grid of at most
+# SCAN_RESUME_EIGHTHS eighths of a wave.  On an NVIDIA H100, half a wave
+# beat a quarter and a whole one on the two-sweep table's survivors at
+# caps 8, 12 and 20 on both main-path streams (chip_smoke.py times all
+# three each run).
+SCAN_RESUME_EIGHTHS = 4
+
+
+def scan_resume_blocks(M: int, sms: int) -> int:
+    """Thread blocks of the list form of K6' for up to M walkers: enough
+    for a walker a lane, at most ``SCAN_RESUME_EIGHTHS`` eighths of a wave
+    (``2048 // SCAN_THREADS`` blocks an SM); the grid's warps stride over
+    the list in chunks of 32."""
+    wave = sms * (2048 // SCAN_THREADS)
+    return max(1, min(-(-M // SCAN_THREADS),
+                      wave * SCAN_RESUME_EIGHTHS // 8))
 
 
 @functools.lru_cache(maxsize=None)
@@ -893,11 +929,7 @@ def _multiprocessors(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def scan_walk(stream: torch.Tensor, n_bytes: int, L: int) -> torch.Tensor:
-    """(P,) uint8 stream buffer -> (P + 2,) int32 end table E: E[q] is the
-    end byte of the block that starts at byte q, or ERR = P + 1 where the
-    host scanner would reject it; E[P] = E[P + 1] = ERR.  Walkers read no
-    further than ``n_bytes`` (<= P), the stream's true length."""
+def _check_stream(stream: torch.Tensor, n_bytes: int, L: int) -> None:
     _check(stream, "stream", torch.uint8, 1)
     P = stream.shape[0]
     if not 0 <= n_bytes <= P:
@@ -906,8 +938,17 @@ def scan_walk(stream: torch.Tensor, n_bytes: int, L: int) -> torch.Tensor:
         raise ValueError(f"a {P}-byte stream overflows the int32 end table")
     if not 1 <= L <= SCAN_MAX_L:
         raise ValueError(f"L must be in [1, {SCAN_MAX_L}], got {L}")
+
+
+def scan_walk(stream: torch.Tensor, n_bytes: int, L: int) -> torch.Tensor:
+    """(P,) uint8 stream buffer -> (P + 2,) int32 end table E: E[q] is the
+    end byte of the block that starts at byte q, or ERR = P + 1 where the
+    host scanner would reject it; E[P] = E[P + 1] = ERR.  Walkers read no
+    further than ``n_bytes`` (<= P), the stream's true length."""
+    _check_stream(stream, n_bytes, L)
     if not _on_cuda(stream):
         return scan_walk_plain(stream, n_bytes, L)
+    P = stream.shape[0]
     plan = scan_walk_plan(P, L, _multiprocessors(stream.device))
     E = torch.empty(P + 2, dtype=torch.int32, device=stream.device)
     _launch("jt_scan_walk", stream.device, stream.data_ptr(), P,
@@ -916,13 +957,25 @@ def scan_walk(stream: torch.Tensor, n_bytes: int, L: int) -> torch.Tensor:
     return E
 
 
+class ScanSurvivors(NamedTuple):
+    """The walkers still live at the cap of the two-sweep table's first
+    sweep: the first ``n`` entries (a count on the device) of each (P,)
+    buffer, in no order."""
+    q: torch.Tensor      # int64 start bytes
+    c: torch.Tensor      # int32 bits consumed from the block's start
+    w: torch.Tensor      # int32 coefficient index reached
+    n: torch.Tensor      # (1,) int64
+
+
 def scan_walk_resume_plain(stream: torch.Tensor, n_bytes: int, L: int,
                            q: torch.Tensor, steps: int, c0: torch.Tensor,
-                           w0: torch.Tensor, n_live: torch.Tensor):
-    """Plain version of K6': :func:`scan_walk_plain`'s step loop over M
-    walkers that start ``c0`` bits into the block at byte ``q`` with index
-    ``w0``, for at most ``steps`` units; walkers at index >= ``n_live``
-    do not walk."""
+                           w0: torch.Tensor, n_live: torch.Tensor,
+                           table=None):
+    """Plain version of K6' (both forms): :func:`scan_walk_plain`'s step
+    loop over M walkers that start ``c0`` bits into the block at byte
+    ``q`` with index ``w0``, for at most ``steps`` units; walkers at index
+    >= ``n_live`` do not walk.  With ``table``, writes the walkers' entries
+    there as :func:`scan_walk_resume` does and returns it."""
     P = stream.shape[0]
     M = q.shape[0]
     dev = stream.device
@@ -930,12 +983,13 @@ def scan_walk_resume_plain(stream: torch.Tensor, n_bytes: int, L: int,
                    torch.zeros(2, dtype=torch.int64, device=dev)])
     w16 = (b[:-1] << 8) | b[1:]                   # (P + 1,), w16[P] = 0
     limit = 8 * n_bytes
-    start = q * 8
+    skip = torch.arange(M, device=dev) >= n_live.reshape(())
+    # Past the count, q may be anything: those walkers start at byte 0.
+    start = torch.where(skip, 0, q) * 8
     pos = start + c0.to(torch.int64)
     widx = w0.to(torch.int64)
     done = torch.zeros(M, dtype=torch.bool, device=dev)
     bad = torch.zeros(M, dtype=torch.bool, device=dev)
-    skip = torch.arange(M, device=dev) >= n_live.reshape(())
     for _ in range(steps):
         live = ~(done | bad | skip)
         if not bool(live.any()):
@@ -958,13 +1012,19 @@ def scan_walk_resume_plain(stream: torch.Tensor, n_bytes: int, L: int,
         bad = bad | new_bad
     c = pos - start
     length = torch.where(done, (c + 15) >> 3, torch.where(bad, -1, -2))
+    if table is not None:
+        # Walkers past the count write ERR to table[P], which holds it.
+        at = torch.where(skip, P, q)
+        table[at] = torch.where(done & ~skip, at + length, P + 1).to(
+            torch.int32)
+        return table
     return (length.to(torch.int32), c.to(torch.int32), widx.to(torch.int32))
 
 
 def scan_walk_resume(stream: torch.Tensor, n_bytes: int, L: int,
                      q: torch.Tensor, cap: int, c0=None, w0=None,
-                     n_live=None):
-    """K6's walkers capped and resumed (the two-sweep form).
+                     n_live=None, table=None):
+    """K6's walkers capped and resumed (the two-sweep form's list form).
 
     Walker i walks the block that starts at byte ``q[i]`` (int64), already
     ``c0[i]`` bits into it with coefficient index ``w0[i]`` (int32; zero
@@ -976,17 +1036,21 @@ def scan_walk_resume(stream: torch.Tensor, n_bytes: int, L: int,
     the last two back as ``c0`` / ``w0`` to resume.  ``n_live`` (one int64
     on the tensors' device, or None for all M) is how many of the walkers
     walk: the rest return (-2, c0, w0) at once, and the count is read on
-    the device, so a caller never waits for it."""
-    _check(stream, "stream", torch.uint8, 1)
-    _check(q, "q", torch.int64, 1)
-    P, M = stream.shape[0], q.shape[0]
-    if not 0 <= n_bytes <= P:
-        raise ValueError(f"n_bytes must be in [0, {P}], got {n_bytes}")
-    if L < 1:
-        raise ValueError(f"L must be >= 1, got {L}")
+    the device, so a caller never waits for it.  Lanes are refilled from
+    the list, and each walker reads its headers through a bit buffer.
+
+    With ``table``, a (P + 2,) int32 end table, it returns nothing per
+    walker: it writes ``table[q[i]]`` = q[i] + length, or ERR = P + 1 where
+    the block is rejected or the walker is still live at the cap (the
+    caller gives it the rest of the unit budget), for the walkers that
+    walk, and returns ``table``.  This is sweep 2 of the two-sweep end
+    table, over :func:`scan_walk_capped`'s survivors."""
+    _check_stream(stream, n_bytes, L)
     if cap < 0:
         raise ValueError(f"cap must be >= 0, got {cap}")
     steps = _walk_units(L) if cap == 0 else min(cap, _walk_units(L))
+    _check(q, "q", torch.int64, 1)
+    P, M = stream.shape[0], q.shape[0]
     for name, t in (("c0", c0), ("w0", w0)):
         if t is not None:
             _check(t, name, torch.int32, 1)
@@ -996,23 +1060,91 @@ def scan_walk_resume(stream: torch.Tensor, n_bytes: int, L: int,
         _check(n_live, "n_live", torch.int64, n_live.dim())
         if n_live.numel() != 1:
             raise ValueError("n_live must hold one count")
-    given = [t for t in (c0, w0, n_live) if t is not None]
+    if table is not None:
+        _check(table, "table", torch.int32, 1)
+        if table.shape[0] != P + 2:
+            raise ValueError(f"table must have {P + 2} entries, got "
+                             f"{table.shape[0]}")
+    given = [t for t in (c0, w0, n_live, table) if t is not None]
     if not _on_cuda(stream, q, *given):
         zero = torch.zeros(M, dtype=torch.int32, device=q.device)
         return scan_walk_resume_plain(
             stream, n_bytes, L, q, steps, zero if c0 is None else c0,
             zero if w0 is None else w0,
-            torch.tensor(M) if n_live is None else n_live)
-    out = [torch.empty(M, dtype=torch.int32, device=q.device)
-           for _ in range(3)]
+            torch.tensor(M) if n_live is None else n_live, table)
+    out = (None,) * 3
+    if table is None:
+        out = tuple(torch.empty(M, dtype=torch.int32, device=q.device)
+                    for _ in range(3))
     if M:
         _launch("jt_scan_walk_resume", stream.device, stream.data_ptr(), P,
                 8 * n_bytes, L, q.data_ptr(),
                 *(None if t is None else t.data_ptr() for t in (c0, w0)), M,
                 None if n_live is None else n_live.data_ptr(), steps,
-                *(t.data_ptr() for t in out))
+                scan_resume_blocks(M, _multiprocessors(q.device)),
+                None if table is None else table.data_ptr(),
+                *(None if t is None else t.data_ptr() for t in out))
         _count(scan_walk_resume)
-    return tuple(out)
+    return out if table is None else table
+
+
+def scan_walk_capped_plain(stream: torch.Tensor, n_bytes: int, L: int,
+                           cap: int):
+    """Plain version of :func:`scan_walk_capped`: the list form's step loop
+    over every byte, then the live walkers gathered in byte order."""
+    P, dev = stream.shape[0], stream.device
+    cap = min(cap, _walk_units(L))
+    q = torch.arange(P, dtype=torch.int64, device=dev)
+    zero = torch.zeros(P, dtype=torch.int32, device=dev)
+    length, c, w = scan_walk_resume_plain(stream, n_bytes, L, q, cap, zero,
+                                          zero, torch.tensor(P))
+    E = torch.full((P + 2,), P + 1, dtype=torch.int32, device=dev)
+    E[:P] = torch.where(length >= 0, q + length, P + 1).to(torch.int32)
+    if cap == _walk_units(L):
+        return E, None
+    live = torch.nonzero(length == -2).reshape(-1)
+    k = live.shape[0]
+    surv = ScanSurvivors(torch.zeros(P, dtype=torch.int64, device=dev),
+                         *(torch.zeros(P, dtype=torch.int32, device=dev)
+                           for _ in range(2)),
+                         torch.full((1,), k, dtype=torch.int64, device=dev))
+    surv.q[:k] = live
+    surv.c[:k] = c[live]
+    surv.w[:k] = w[live]
+    return E, surv
+
+
+def scan_walk_capped(stream: torch.Tensor, n_bytes: int, L: int, cap: int):
+    """Sweep 1 of the two-sweep end table (the range form of K6'): every
+    byte's walker for at most ``cap`` (>= 1) units, from its block's start,
+    on K6's staged tiles (:func:`scan_walk_plan` with the cap's halo).
+
+    Returns the (P + 2,) int32 end table, with ERR = P + 1 where a walker
+    is still live at the cap, and the :class:`ScanSurvivors` that are: one
+    launch (and a memset of the count), nothing read back.  Where ``cap``
+    covers the host scanner's unit budget there is no sweep 2: a live
+    walker is ERR, and the survivors are None."""
+    _check_stream(stream, n_bytes, L)
+    if cap < 1:
+        raise ValueError(f"cap must be >= 1, got {cap}")
+    if not _on_cuda(stream):
+        return scan_walk_capped_plain(stream, n_bytes, L, cap)
+    P, dev = stream.shape[0], stream.device
+    cap = min(cap, _walk_units(L))
+    plan = scan_walk_plan(P, L, _multiprocessors(dev), cap)
+    E = torch.empty(P + 2, dtype=torch.int32, device=dev)
+    surv = None
+    if cap < _walk_units(L):
+        surv = ScanSurvivors(
+            torch.empty(P, dtype=torch.int64, device=dev),
+            *(torch.empty(P, dtype=torch.int32, device=dev)
+              for _ in range(2)),
+            torch.empty(1, dtype=torch.int64, device=dev))
+    _launch("jt_scan_walk_capped", dev, stream.data_ptr(), P, 8 * n_bytes, L,
+            cap, plan.tile, plan.halo, E.data_ptr(),
+            *((None,) * 4 if surv is None else (t.data_ptr() for t in surv)))
+    _count(scan_walk_capped)
+    return E, surv
 
 
 # ---------------------------------------------------------------------------
@@ -1156,7 +1288,8 @@ def chase_starts_multi(E: torch.Tensor, targets: torch.Tensor,
 
 KERNELS = (encode_stream_rows, encode_stream_rows_tables, deposit_rows,
            decode_stream_blocks, decode_blocks, encode_blocks, scan_walk,
-           scan_walk_resume, chase_starts, chase_starts_multi)
+           scan_walk_capped, scan_walk_resume, chase_starts,
+           chase_starts_multi)
 
 
 def reset_launch_counts() -> None:

@@ -232,8 +232,8 @@ def test_wrappers_check_inputs_and_never_fall_back():
     assert set(before) == {"encode_stream_rows", "encode_stream_rows_tables",
                            "deposit_rows", "decode_stream_blocks",
                            "decode_blocks", "encode_blocks", "scan_walk",
-                           "scan_walk_resume", "chase_starts",
-                           "chase_starts_multi"}
+                           "scan_walk_capped", "scan_walk_resume",
+                           "chase_starts", "chase_starts_multi"}
     with pytest.raises(ValueError, match="n_bytes"):
         K.scan_walk(torch.zeros(4, dtype=torch.uint8), 5, 64)
     with pytest.raises(ValueError, match="int32"):
