@@ -138,6 +138,38 @@ result):
    to ``compress_band``'s, f32 levels and planes within the tie contract
    of ``compress_band`` / ``decompress_band``), and the f64 steps on a
    golden configuration (its Y band bytes).
+   Phase 4f drives the parallel layer, the CLI and the profiling module,
+   counts reset just before and read just after each run: on the 1 x 1
+   card mesh, ``parallel.compress_batch`` of 8 x 2048x2048 (bench.py's
+   generator, seeds 0-7) at the main path and at the CLI defaults (bs 4)
+   must equal ``compress_ycbcr`` per image with device and with host
+   entropy (one K1 and one K2 a call with device entropy, none with host
+   entropy), and ``decompress_batch`` ``decompress_to_ycbcr`` (one K3 and
+   one K4 a call with device entropy); on a 1 x 4 band mesh of the one
+   GPU repeated, the same set (four row-band shares: K1-K4 four times
+   each), BASELINE config 5's 4 x 3840x2160 set (``compress_batch`` and
+   ``decompress_batch``: 135 block rows do not divide over 4, so one
+   share), and each band of its first image at the main path, (2) bs 5
+   and (3) d 24 / divide 1000: ``compress_plane`` and
+   ``compress_plane_device_entropy`` byte-equal to ``compress_band``,
+   ``decompress_plane`` equal to ``decompress_band``, one K1-K4 a share.
+   Two processes on the GPU over gloo (``chip_smoke.py --gloo-child``, a
+   timeout each, killed on failure): ``compress_plane_distributed`` of
+   the 4K Y plane split by rows gives both the serial stream,
+   ``decompress_plane_distributed``'s rows reassemble the serial plane,
+   and ``compress_batch_distributed``'s manifest over four 2048x2048
+   images is identical on both, each blob ``compress_ycbcr``'s, PSNR > 30
+   dB.  Where Pillow imports, ``python -m jpeg_tpu_torch batch --mesh
+   --verify`` on the 2048x2048 set written as PNGs (containers byte-equal
+   to ``compress_ycbcr``'s, mean PSNR > 30 dB) and ``--decompress`` on its
+   output, each printing its ``Metrics`` JSON line; else a line says it
+   did not run.  Then, printed and not gated: host-clock medians of 3 of
+   ``compress_batch`` against ``compress_many`` and a loop of
+   ``compress_ycbcr``, ``decompress_batch`` against ``decompress_many``
+   and a loop, and a ``StageTimer`` breakdown of one ``compress_batch``
+   and of one ``decompress_batch`` call.  K1-K4's lines in the JSON also
+   carry ``launches_batch``, their launches in the 1 x 1 mesh's main-path
+   batch run.
 5. Time encode and decode (host array -> host bytes -> host array) with
    CUDA events, median of 7 after a warm-up, decode with either scan; the
    host-free decode stage by stage; each kernel against its plain version; the pure-Python scanner, the C++
@@ -316,10 +348,11 @@ def log(*a) -> None:
     print(*a, flush=True)
 
 
-def synth_image(h: int, w: int, channels: int = 3) -> np.ndarray:
+def synth_image(h: int, w: int, channels: int = 3,
+                seed: int = 7) -> np.ndarray:
     """Natural-image-like content: smooth structure + texture + mild noise
     (the generator of bench.py, seed 7)."""
-    rng = np.random.default_rng(7)
+    rng = np.random.default_rng(seed)
     y, x = np.mgrid[0:h, 0:w].astype(np.float64)
     out = []
     for c in range(channels):
@@ -688,6 +721,355 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
     log(f"  ok: {what}")
 
+
+# ---------------------------------------------------------------------------
+# Phase 4f: the parallel layer, the CLI and the profiling module
+# ---------------------------------------------------------------------------
+
+BATCH_SEEDS = 8      # the 2048x2048 batch: bench.py's generator, seeds 0-7
+SET_4K = 4           # BASELINE config 5's 4K image set (seeds 0-3)
+BAND_SHARES = 4      # the 1 x 4 band mesh: one GPU repeated four times
+GLOO_PROCS = 2
+GLOO_TIMEOUT_S = 300
+CLI_TIMEOUT_S = 600
+
+
+def qconfig(h: int, w: int, bs: int = 2, d: int = 8,
+            q=("qtable", {})):
+    from jpeg_tpu_torch import Configuration, QuantizationMethod
+    return Configuration(width=w, height=h, block_size=bs, dct_size=d,
+                         quantization=QuantizationMethod(q[0], **q[1]))
+
+
+def run_group(argvs, timeout: float):
+    """Start one process per argv in the repository; wait for all with a
+    deadline, killing every one of them once one fails or the deadline
+    passes.  Returns (return codes, outputs)."""
+    procs = [subprocess.Popen(a, cwd=REPO, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for a in argvs]
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            if (any(p.poll() not in (None, 0) for p in procs)
+                    or time.monotonic() > deadline):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        outs = [p.communicate(timeout=30)[0] for p in procs]
+    return [p.returncode for p in procs], outs
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def gloo_child(port: int, nproc: int, pid: int, outdir: str) -> int:
+    """One process of phase 4f's gloo group (``chip_smoke.py --gloo-child
+    PORT NPROC PID OUTDIR``): the 4K Y plane's rows of this process
+    through ``compress_plane_distributed`` and
+    ``decompress_plane_distributed``, then ``compress_batch_distributed``
+    over four 2048x2048 images, all on the card's GPU."""
+    sys.path.insert(0, REPO)
+    from jpeg_tpu_torch.parallel import multihost
+    torch.cuda.set_device(0)
+    multihost.initialize(f"127.0.0.1:{port}", nproc, pid)
+    try:
+        h, w = SIZES[1]
+        cfg = qconfig(h, w)
+        _, _, y0, y1 = multihost.host_rows(cfg)
+        plane = synth_image(h, w)[y0:y1, :, 0]
+        stream = multihost.compress_plane_distributed(plane, cfg)
+        with open(os.path.join(outdir, f"stream_{pid}.bin"), "wb") as f:
+            f.write(stream)
+        np.save(os.path.join(outdir, f"rows_{pid}.npy"),
+                multihost.decompress_plane_distributed(stream, cfg))
+        bh, bw = SIZES[0]
+        blobs, manifest = multihost.compress_batch_distributed(
+            [lambda s=s: synth_image(bh, bw, seed=s) for s in range(4)],
+            qconfig(bh, bw), verify=True)
+        np.save(os.path.join(outdir, f"manifest_{pid}.npy"), manifest)
+        for i, blob in enumerate(blobs):
+            if blob is not None:
+                with open(os.path.join(outdir, f"batch_{i}.bin"), "wb") as f:
+                    f.write(blob)
+    finally:
+        multihost.shutdown()
+    return 0
+
+
+def staged_call(module, steps: dict, fn):
+    """Run ``fn`` once with ``module``'s functions named in ``steps``
+    timed as ``StageTimer`` stages (each ended by a sync of the CUDA
+    tensors it returns).  Returns (timer, whole call ms, fn's result)."""
+    from jpeg_tpu_torch.utils.profiling import StageTimer
+    st = StageTimer()
+    saved = {n: getattr(module, n) for n in steps}
+
+    def timed(name, f):
+        def run(*a):
+            with st.stage(name) as scope:
+                return scope.fence(f(*a))
+        return run
+
+    for n, stage_name in steps.items():
+        setattr(module, n, timed(stage_name, saved[n]))
+    try:
+        t0 = time.perf_counter()
+        out = fn()
+        whole = (time.perf_counter() - t0) * 1e3
+    finally:
+        for n, f in saved.items():
+            setattr(module, n, f)
+    return st, whole, out
+
+
+def parallel_phase(dev: torch.device, card: str) -> dict:
+    """Phase 4f (see the module docstring).  Returns the launch counts of
+    the 1 x 1 mesh's main-path ``compress_batch`` (K1, K2) and
+    ``decompress_batch`` (K3, K4) runs."""
+    import shutil
+    from jpeg_tpu_torch import (compress_band, compress_many, compress_ycbcr,
+                                decompress_band, decompress_many,
+                                decompress_to_ycbcr, parallel)
+    from jpeg_tpu_torch.ops import kernels as K
+    from jpeg_tpu_torch.parallel import sharded
+
+    def k_counts(*names):
+        c = K.launch_counts()
+        return tuple(c[n] for n in names)
+
+    h, w = SIZES[0]
+    batch = np.stack([synth_image(h, w, seed=s) for s in range(BATCH_SEEDS)])
+    mesh1 = parallel.make_mesh(n_devices=1)
+    check(mesh1.devices.shape == (1, 1) and mesh1.devices[0, 0] == dev,
+          f"make_mesh(n_devices=1) is the 1 x 1 card mesh: {mesh1}")
+    batch_launches = {}
+    refs = {}
+    for label, cfg in (("main path (bs 2)", qconfig(h, w)),
+                       ("CLI defaults (bs 4)", qconfig(h, w, bs=4))):
+        ref = [compress_ycbcr(im, cfg) for im in batch]
+        refs[cfg.block_size] = ref
+        for de in (True, False):
+            K.reset_launch_counts()
+            blobs = parallel.compress_batch(batch, cfg, mesh1,
+                                            device_entropy=de)
+            k1, k2 = k_counts("encode_stream_rows", "deposit_rows")
+            check(blobs == ref and (k1, k2) == ((1, 1) if de else (0, 0)),
+                  f"{label}, {BATCH_SEEDS} x {h}x{w}, 1 x 1 mesh, "
+                  f"device_entropy={de}: compress_batch equals compress_ycbcr "
+                  f"per image; K1 {k1}, K2 {k2} launches (one each per "
+                  "device share with device entropy)")
+            if de and cfg.block_size == 2:
+                batch_launches.update(encode_stream_rows=k1,
+                                      deposit_rows=k2)
+        want = [decompress_to_ycbcr(b) for b in ref]
+        for de in (True, False):
+            K.reset_launch_counts()
+            rec = parallel.decompress_batch(ref, mesh1, device_entropy=de)
+            k3, k4 = k_counts("decode_stream_blocks", "decode_blocks")
+            check(rec.shape == batch.shape and rec.dtype == np.uint8
+                  and all(np.array_equal(r, x) for r, x in zip(rec, want))
+                  and (k3, k4) == ((1 if de else 0), 1),
+                  f"{label}: decompress_batch (device_entropy={de}) equals "
+                  f"decompress_to_ycbcr per image; K3 {k3}, K4 {k4} launches")
+            if de and cfg.block_size == 2:
+                batch_launches.update(decode_stream_blocks=k3,
+                                      decode_blocks=k4)
+    check(all(batch_launches[n] > 0 for n in MAIN_PATH),
+          f"the batch path launched every kernel of its path: "
+          f"{batch_launches}")
+
+    log(f"  -- a 1 x {BAND_SHARES} band mesh of {dev} repeated")
+    mesh4 = parallel.make_mesh(devices=[dev] * BAND_SHARES, data=1,
+                               band=BAND_SHARES)
+    cfg = qconfig(h, w)
+    shares = sharded.batch_shares(mesh4, cfg, BATCH_SEEDS)
+    K.reset_launch_counts()
+    blobs = parallel.compress_batch(batch, cfg, mesh4)
+    k1, k2 = k_counts("encode_stream_rows", "deposit_rows")
+    K.reset_launch_counts()
+    rec = parallel.decompress_batch(blobs, mesh4)
+    k3, k4 = k_counts("decode_stream_blocks", "decode_blocks")
+    check(blobs == refs[2] and len(shares) == BAND_SHARES
+          and (k1, k2, k3, k4) == (BAND_SHARES,) * 4
+          and all(np.array_equal(r, decompress_to_ycbcr(b))
+                  for r, b in zip(rec, blobs)),
+          f"{BATCH_SEEDS} x {h}x{w} on {len(shares)} row-band shares: "
+          "compress_batch / decompress_batch equal the per-image calls; "
+          f"K1 {k1}, K2 {k2}, K3 {k3}, K4 {k4} launches (one each a share)")
+    H4, W4 = SIZES[1]
+    set4k = np.stack([synth_image(H4, W4, seed=s) for s in range(SET_4K)])
+    cfg = qconfig(H4, W4)
+    shares = sharded.batch_shares(mesh4, cfg, SET_4K)
+    K.reset_launch_counts()
+    blobs = parallel.compress_batch(set4k, cfg, mesh4)
+    k1, k2 = k_counts("encode_stream_rows", "deposit_rows")
+    check(blobs == [compress_ycbcr(im, cfg) for im in set4k]
+          and (k1, k2) == (len(shares),) * 2
+          and all(np.array_equal(r, decompress_to_ycbcr(b)) for r, b in
+                  zip(parallel.decompress_batch(blobs, mesh4), blobs)),
+          f"{SET_4K} x {H4}x{W4} (BASELINE config 5's set): compress_batch "
+          f"and decompress_batch equal the per-image calls on "
+          f"{len(shares)} share(s) ({cfg.blocks_high} block rows over "
+          f"{BAND_SHARES}: an indivisible axis stays whole); K1 {k1}, K2 "
+          f"{k2}")
+    for label, cfg in (
+            ("main path", qconfig(H4, W4)),
+            ("(2) bs 5", qconfig(H4, W4, bs=5)),
+            ("(3) bs 4, d 24, divide 1000",
+             qconfig(H4, W4, bs=4, d=24, q=("divide", {"divisor": 1000})))):
+        n_sh = len(sharded.row_shares(mesh4, cfg))
+        for b, name in enumerate("Y Cb Cr".split()):
+            plane = set4k[0, :, :, b]
+            serial = compress_band(plane, cfg)
+            host = parallel.compress_plane(plane, cfg, mesh4)
+            K.reset_launch_counts()
+            devs = parallel.compress_plane_device_entropy(plane, cfg, mesh4)
+            k1, k2 = k_counts("encode_stream_rows", "deposit_rows")
+            K.reset_launch_counts()
+            rec = parallel.decompress_plane(serial, cfg, mesh4)
+            k3, k4 = k_counts("decode_stream_blocks", "decode_blocks")
+            check(host == serial and devs == serial
+                  and np.array_equal(rec, decompress_band(serial, cfg))
+                  and (k1, k2, k3, k4) == (n_sh,) * 4,
+                  f"{H4}x{W4} {label}, {name}: compress_plane and "
+                  "compress_plane_device_entropy equal compress_band byte "
+                  "for byte, decompress_plane equals decompress_band, on "
+                  f"{n_sh} row-band shares ({cfg.blocks_high} block rows); "
+                  f"K1 {k1}, K2 {k2}, K3 {k3}, K4 {k4}")
+
+    log(f"  -- {GLOO_PROCS} processes on {dev} over gloo")
+    outdir = os.path.join(REPO, "build", "gloo")
+    shutil.rmtree(outdir, ignore_errors=True)
+    os.makedirs(outdir)
+    port = free_port()
+    t0 = time.perf_counter()
+    rcs, outs = run_group([[sys.executable, os.path.abspath(__file__),
+                            "--gloo-child", str(port), str(GLOO_PROCS),
+                            str(p), outdir] for p in range(GLOO_PROCS)],
+                          GLOO_TIMEOUT_S)
+    for p, (rc, out) in enumerate(zip(rcs, outs)):
+        if rc != 0:
+            log(out)
+        check(rc == 0, f"gloo process {p} exited {rc}")
+    log(f"  the group ran {time.perf_counter() - t0:.1f} s (host clock)")
+    cfg = qconfig(H4, W4)
+    y_plane = synth_image(H4, W4)[:, :, 0]
+    serial = compress_band(y_plane, cfg)
+    streams = [open(os.path.join(outdir, f"stream_{p}.bin"), "rb").read()
+               for p in range(GLOO_PROCS)]
+    check(all(s == serial for s in streams),
+          f"compress_plane_distributed: every process holds the serial "
+          f"{H4}x{W4} Y stream ({len(serial)} bytes)")
+    rows = [np.load(os.path.join(outdir, f"rows_{p}.npy"))
+            for p in range(GLOO_PROCS)]
+    check(np.array_equal(np.concatenate(rows), decompress_band(serial, cfg)),
+          "decompress_plane_distributed: the processes' rows ("
+          + ", ".join(str(r.shape[0]) for r in rows)
+          + ") reassemble the serial plane")
+    manifests = [np.load(os.path.join(outdir, f"manifest_{p}.npy"))
+                 for p in range(GLOO_PROCS)]
+    bcfg = qconfig(h, w)
+    check(all(np.array_equal(m, manifests[0]) for m in manifests)
+          and all(open(os.path.join(outdir, f"batch_{i}.bin"), "rb").read()
+                  == refs[2][i] for i in range(4))
+          and list(manifests[0][:, 0]) == [len(b) for b in refs[2][:4]]
+          and (manifests[0][:, 2] > 1000 * PSNR_MIN_DB).all(),
+          f"compress_batch_distributed: the manifest is identical on every "
+          f"process ({manifests[0].tolist()}), each blob equals "
+          "compress_ycbcr's, PSNR > 30 dB")
+
+    log("  -- the CLI")
+    try:
+        from PIL import Image
+        pil = True
+    except ImportError as e:
+        pil = False
+        log(f"  python -m jpeg_tpu_torch batch: not run, Pillow does not "
+            f"import here ({e}); the batch functions it calls ran above")
+    if pil:
+        cli = os.path.join(REPO, "build", "cli")
+        shutil.rmtree(cli, ignore_errors=True)
+        dirs = {k: os.path.join(cli, k) for k in ("png", "jc", "rec")}
+        os.makedirs(dirs["png"])
+        for i, im in enumerate(batch):
+            Image.fromarray(im, "YCbCr").convert("RGB").save(
+                os.path.join(dirs["png"], f"img{i}.png"), compress_level=1)
+        lines = {}
+        for mode, src, dst, flags in (
+                ("encode", "png", "jc", ["--block_size", "2", "--mesh",
+                                         "--verify"]),
+                ("decode", "jc", "rec", ["--decompress"])):
+            argv = [sys.executable, "-m", "jpeg_tpu_torch", "batch",
+                    dirs[src], dirs[dst], *flags]
+            (rc,), (out,) = run_group([argv], CLI_TIMEOUT_S)
+            if rc != 0:
+                log(out)
+            check(rc == 0, f"{' '.join(argv[1:4])} ... {' '.join(flags)} "
+                  f"exited {rc}")
+            lines[mode] = json.loads(out.strip().splitlines()[-1])
+            log(f"  {mode}: {json.dumps(lines[mode])}  [{card}]")
+        same = all(
+            open(os.path.join(dirs["jc"], f"img{i}.jc"), "rb").read()
+            == compress_ycbcr(np.asarray(Image.open(os.path.join(
+                dirs["png"], f"img{i}.png")).convert("YCbCr")), bcfg)
+            for i in range(BATCH_SEEDS))
+        check(same and lines["encode"]["images"] == BATCH_SEEDS
+              and lines["encode"]["failures"] == 0
+              and lines["encode"]["mean_psnr_db"] > PSNR_MIN_DB
+              and lines["decode"]["images"] == BATCH_SEEDS
+              and lines["decode"]["failures"] == 0,
+              f"python -m jpeg_tpu_torch batch --mesh --verify: "
+              f"{BATCH_SEEDS} containers byte-equal to compress_ycbcr's, "
+              f"mean PSNR {lines['encode']['mean_psnr_db']} dB > "
+              f"{PSNR_MIN_DB}; --decompress decoded them all")
+
+    log(f"  -- timing ({BATCH_SEEDS} x {h}x{w}, main path, 1 x 1 mesh; "
+        f"host clock, median of 3)")
+    cfg, ref = qconfig(h, w), refs[2]
+    mp = BATCH_SEEDS * h * w / 1e6
+    listed = list(batch)
+    for label, fn in (
+            ("compress_batch", lambda: parallel.compress_batch(batch, cfg,
+                                                               mesh1)),
+            ("compress_many (depth 2)", lambda: compress_many(listed, cfg)),
+            ("compress_ycbcr loop", lambda: [compress_ycbcr(im, cfg)
+                                             for im in listed]),
+            ("decompress_batch", lambda: parallel.decompress_batch(ref,
+                                                                   mesh1)),
+            ("decompress_many (depth 2)", lambda: decompress_many(ref)),
+            ("decompress_to_ycbcr loop", lambda: [decompress_to_ycbcr(b)
+                                                  for b in ref])):
+        ms = median_host_ms(fn, 3)
+        log(f"  {label}: {ms:.3f} ms = {mp / ms * 1e3:.1f} MP/s  [{card}]")
+    for label, steps, fn in (
+            ("compress_batch", {
+                "_share_levels": "upload + transform",
+                "_device_entropy": "stats pull + K1 + K2 + stream pull"},
+             lambda: parallel.compress_batch(batch, cfg, mesh1)),
+            ("decompress_batch", {
+                "_scan_streams": "host C++ scans (thread pool)",
+                "_parse_shares": "slices + upload + K3",
+                "_decode_share_planes": "K4 + layout (BandDecoder)",
+                "_pull_planes": "plane pull + assembly"},
+             lambda: parallel.decompress_batch(ref, mesh1))):
+        st, whole, out = staged_call(sharded, steps, fn)
+        same = (out == ref if label == "compress_batch" else
+                all(np.array_equal(r, decompress_to_ycbcr(b))
+                    for r, b in zip(out, ref)))
+        check(same, f"the StageTimer run of {label} gives the per-image "
+              "results")
+        log(f"  StageTimer, one {label} call: {whole:.3f} ms in all, "
+            f"{whole - 1e3 * sum(st.totals.values()):.3f} ms outside the "
+            f"stages  [{card}]\n" + str(st))
+    return batch_launches
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1996,6 +2378,9 @@ def main() -> int:
                                         dtype=torch.float64) == gdata.y,
               f"f64 steps on the card: {gname}'s Y band bytes")
 
+    log("== phase 4f: the parallel layer, the CLI and the profiling module")
+    batch_launches = parallel_phase(dev, card)
+
     log(f"== phase 5: timing (CUDA events; {card})")
     for (h, w), (blob, _) in runs.items():
         cfg = cfg_for(h, w)
@@ -2142,6 +2527,8 @@ def main() -> int:
                  "library_ms": library_ms}
         if "error_eps32" in r:
             entry["error_eps32"] = r["error_eps32"]
+        if name in batch_launches:
+            entry["launches_batch"] = batch_launches[name]
         kernels.append(entry)
     log(f"  encode_blocks' product without its epilogue "
         f"(encode_blocks_sums, f32 out, uncounted): "
@@ -2556,4 +2943,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--gloo-child"]:
+        sys.exit(gloo_child(int(sys.argv[2]), int(sys.argv[3]),
+                            int(sys.argv[4]), sys.argv[5]))
     sys.exit(main())

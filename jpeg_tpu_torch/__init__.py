@@ -28,6 +28,12 @@ registered steps, ``compress_band_steps`` / ``decompress_band_steps``), with
 the reference's class-level objects beside it (``ops/transform.py``: ``DCT``,
 ``Zigzag``; ``ops/quantize.py``: the quantizer classes;
 ``entropy/bitio.py``, ``entropy/tuples.py``, ``utils/arrays.py``).
+
+``jpeg_tpu_torch.parallel`` shards batches and row bands over a mesh of
+torch devices and stitches the byte-aligned streams (``multihost``: across
+processes over ``torch.distributed``); ``python -m jpeg_tpu_torch
+{compress|decompress|batch}`` is the CLI; ``utils/profiling.py`` holds
+``StageTimer``, ``trace`` and ``Metrics``.
 """
 
 from .config import (BadArrayShapeError, BadQuantizationError,

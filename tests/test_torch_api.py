@@ -235,7 +235,7 @@ def test_codec_leaves_the_callers_precision_settings(caller):
     assert _precision_state() == before
 
 
-def test_cuda_without_gpu_raises_instead_of_falling_back():
+def test_cuda_without_gpu_raises_instead_of_falling_back(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device works")
     tcfg, _ = _cfgs(32, 48)
@@ -247,6 +247,21 @@ def test_cuda_without_gpu_raises_instead_of_falling_back():
         jpeg_tpu_torch.decompress_to_ycbcr(blob)
     with pytest.raises(ValueError, match="unsupported device"):
         jpeg_tpu_torch.decompress_to_ycbcr(blob, device="meta")
+    from jpeg_tpu_torch import parallel
+    from jpeg_tpu_torch.cli import batch
+    with pytest.raises(RuntimeError, match="cuda"):
+        parallel.make_mesh()
+    from PIL import Image
+    (tmp_path / "in").mkdir()
+    Image.fromarray(img, "RGB").save(tmp_path / "in" / "a.png")
+    (tmp_path / "jc").mkdir()
+    (tmp_path / "jc" / "a.jc").write_bytes(blob)
+    for indir, flags in (("in", []), ("in", ["--mesh"]),
+                         ("jc", ["--decompress"])):
+        # the CLI's default --device is cuda
+        with pytest.raises(RuntimeError, match="cuda"):
+            batch.main([str(tmp_path / indir), str(tmp_path / "out"),
+                        *flags])
 
 
 def test_import_leaves_jax_and_jpeg_tpu_out():
@@ -261,6 +276,8 @@ def test_import_leaves_jax_and_jpeg_tpu_out():
         "('jax', 'jaxlib', 'jpeg_tpu'))\n"
         "assert not bad, bad\n"
         "assert 'jpeg_tpu_torch.entropy.device_scan' in sys.modules\n"
+        "assert 'jpeg_tpu_torch.parallel.multihost' in sys.modules\n"
+        "assert 'jpeg_tpu_torch.cli.batch' in sys.modules\n"
         "assert callable(jpeg_tpu_torch.decompress_many)\n"
         "print('ok')\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -291,7 +308,7 @@ def test_port_sources_import_no_jax_and_compile_nothing():
                 for name in names:
                     assert name.split(".")[0] not in ("jax", "jaxlib",
                                                       "jpeg_tpu"), (f, name)
-    assert seen >= 22          # steps.py, entropy/bitio.py, ... included
+    assert seen >= 33          # parallel/, cli/, __main__.py ... included
 
 
 def _string_constants(src: str):
