@@ -155,7 +155,9 @@ result):
    ``decompress_plane`` equal to ``decompress_band``, one K1-K4 a share.
    Two processes on the GPU over gloo (``chip_smoke.py --gloo-child``, a
    timeout each, killed on failure): ``compress_plane_distributed`` of
-   the 4K Y plane split by rows gives both the serial stream,
+   the 4K Y plane, split by rows as the JAX package splits it (1,080
+   rows each: block row 67 straddles the two, and its last 8 rows reach
+   process 0 in the halo), gives both the serial stream,
    ``decompress_plane_distributed``'s rows reassemble the serial plane,
    and ``compress_batch_distributed``'s manifest over four 2048x2048
    images is identical on both, each blob ``compress_ycbcr``'s, PSNR > 30
@@ -170,6 +172,12 @@ result):
    and of one ``decompress_batch`` call.  K1-K4's lines in the JSON also
    carry ``launches_batch``, their launches in the 1 x 1 mesh's main-path
    batch run.
+4g. Run the on-device test suite ``gpu_tests/`` (the counterpart of
+   ``tpu_tests/``) in a subprocess, ``python -m pytest gpu_tests -q -o
+   addopts= -p no:cacheprovider``, with a timeout of its own; it passes
+   only with exit code 0 and every collected case passed (a skip here is
+   a failure).  Its passed count and seconds are printed on a line of
+   their own.
 5. Time encode and decode (host array -> host bytes -> host array) with
    CUDA events, median of 7 after a warm-up, decode with either scan; the
    host-free decode stage by stage; each kernel against its plain version; the pure-Python scanner, the C++
@@ -732,6 +740,7 @@ BAND_SHARES = 4      # the 1 x 4 band mesh: one GPU repeated four times
 GLOO_PROCS = 2
 GLOO_TIMEOUT_S = 300
 CLI_TIMEOUT_S = 600
+GPU_TESTS_TIMEOUT_S = 300
 
 
 def qconfig(h: int, w: int, bs: int = 2, d: int = 8,
@@ -1070,6 +1079,35 @@ def parallel_phase(dev: torch.device, card: str) -> dict:
             f"{whole - 1e3 * sum(st.totals.values()):.3f} ms outside the "
             f"stages  [{card}]\n" + str(st))
     return batch_launches
+
+
+def gpu_tests_phase(card: str) -> None:
+    """Phase 4g (see the module docstring): ``gpu_tests/`` in a
+    subprocess; fails unless every collected case passed."""
+    import xml.etree.ElementTree as ET
+    report = os.path.join(REPO, "build", "gpu_tests.xml")
+    if os.path.exists(report):
+        os.remove(report)
+    argv = [sys.executable, "-m", "pytest", "gpu_tests", "-q", "-o",
+            "addopts=", "-p", "no:cacheprovider", f"--junitxml={report}"]
+    t0 = time.perf_counter()
+    (rc,), (out,) = run_group([argv], GPU_TESTS_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    tests = passed = 0
+    if os.path.exists(report):
+        root = ET.parse(report).getroot()
+        suite = root if root.tag == "testsuite" else root.find("testsuite")
+        tests = int(suite.get("tests"))
+        passed = tests - sum(int(suite.get(k)) for k in
+                             ("failures", "errors", "skipped"))
+    if rc != 0 or passed != tests:
+        log(out)
+    log(f"  gpu_tests: {passed} passed of {tests} collected in "
+        f"{seconds:.1f} s  [{card}]")
+    check(rc == 0 and tests > 0 and passed == tests,
+          f"python -m pytest gpu_tests exited {rc}: {passed} of {tests} "
+          "collected cases passed (none skipped)")
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2380,6 +2418,9 @@ def main() -> int:
 
     log("== phase 4f: the parallel layer, the CLI and the profiling module")
     batch_launches = parallel_phase(dev, card)
+
+    log("== phase 4g: the on-device test suite (gpu_tests/)")
+    gpu_tests_phase(card)
 
     log(f"== phase 5: timing (CUDA events; {card})")
     for (h, w), (blob, _) in runs.items():

@@ -47,6 +47,8 @@ about it is elementwise torch on the module's device.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 from torch import nn
@@ -65,6 +67,22 @@ def _divisible(config: Configuration) -> bool:
                    config.dct_size)
     return (h % bs == 0 and w % bs == 0
             and (h // bs) % d == 0 and (w // bs) % d == 0)
+
+
+def _encode_branch(config: Configuration, dtype: torch.dtype) -> str:
+    if dtype == torch.float64:
+        return "parity"
+    if config.transform == "DCT":
+        return "separable" if _divisible(config) else "sep_pad"
+    return "combined" if _divisible(config) else "blocks"
+
+
+def _decode_branch(config: Configuration, dtype: torch.dtype, deq) -> str:
+    if dtype == torch.float64:
+        return "parity"
+    if deq is not None:
+        return "kernel"
+    return "combined" if _divisible(config) else "chain"
 
 
 def _check_transform(config: Configuration) -> None:
@@ -87,21 +105,21 @@ def _tensor(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
 
 
 class BandEncoder(nn.Module):
-    """(B, H, W) bands (any real dtype) -> (B, num_blocks, L) int32 levels."""
+    """(B, H, W) bands (any real dtype) -> (B, num_blocks, L) int32 levels.
 
-    def __init__(self, config: Configuration, dtype=None):
+    ``_image`` (private, for ``parallel/sharded.py``): the configuration of
+    the whole image when ``config`` is a share of its block rows.  The
+    branch is the whole image's, so a share computes the same per-block
+    sums as the serial encode of those rows."""
+
+    def __init__(self, config: Configuration, dtype=None, *,
+                 _image: Optional[Configuration] = None):
         super().__init__()
         _check_transform(config)
         self.dtype = resolve_dtype(dtype)
         d, bs = config.dct_size, config.block_size
-        dft = config.transform == "DFT"
-        divisible = _divisible(config)
-        if self.dtype == torch.float64:
-            self.branch = "parity"
-        elif not dft:
-            self.branch = "separable" if divisible else "sep_pad"
-        else:
-            self.branch = "combined" if divisible else "blocks"
+        self.branch = _encode_branch(
+            config if _image is None else _image, self.dtype)
         self.config = config
         self.d, self.bs, self.L = d, bs, d * d
         if self.branch in ("separable", "sep_pad"):
@@ -169,20 +187,20 @@ class BandEncoder(nn.Module):
 
 
 class BandDecoder(nn.Module):
-    """(B, num_blocks, L) int32 levels -> (B, H, W) uint8 planes."""
+    """(B, num_blocks, L) int32 levels -> (B, H, W) uint8 planes.
 
-    def __init__(self, config: Configuration, dtype=None):
+    ``_image``: as :class:`BandEncoder`'s, the whole image's branch for a
+    share of its block rows."""
+
+    def __init__(self, config: Configuration, dtype=None, *,
+                 _image: Optional[Configuration] = None):
         super().__init__()
         _check_transform(config)
         self.dtype = resolve_dtype(dtype)
         d, bs = config.dct_size, config.block_size
         deq = Q.dequant_int_vector(config.quantization, d)
-        if self.dtype == torch.float64:
-            self.branch = "parity"
-        elif deq is not None:
-            self.branch = "kernel"
-        else:
-            self.branch = "combined" if _divisible(config) else "chain"
+        self.branch = _decode_branch(
+            config if _image is None else _image, self.dtype, deq)
         self.config = config
         self.d, self.bs, self.D, self.L = d, bs, d * bs, d * d
         if self.branch in ("kernel", "combined"):

@@ -7,11 +7,17 @@ strictly single-process (SURVEY.md §2b).  Across processes:
 * :func:`initialize` joins the process group (a no-op for one process).
   Each process runs the single-process machinery of
   :mod:`.sharded` on its own devices (:func:`global_mesh`).
-* A plane's block rows are split over the processes in rank order
-  (:func:`host_rows`); each process entropy-codes its own rows, then one
-  ``all_gather`` of (first block row, length) and one of the padded
-  streams fix the offsets, and every process materializes the identical
-  stitched stream, which byte-aligned blocks make equal to the serial one.
+* A plane's image rows are split as the JAX package splits them
+  (:func:`host_rows`): ``height / devices`` rows a device of the global
+  mesh, in rank order, whenever the height divides by the global device
+  count.  A block row belongs to the process that holds its first image
+  row; the rows it lacks from the next processes (fewer than
+  ``dct_size * block_size``) reach it in one ``all_gather`` of every
+  process's first rows, the halo.  Each process entropy-codes its own
+  block rows, on the whole image's branch, then one ``all_gather`` of
+  (first block row, length) and one of the padded streams fix the
+  offsets, and every process materializes the identical stitched stream,
+  which byte-aligned blocks make equal to the serial one.
 * The batch encode owns images round-robin; only a per-image manifest
   crosses processes.
 
@@ -25,7 +31,7 @@ module does; with one GPU to hand it was not measured either.
 from __future__ import annotations
 
 import sys
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -82,20 +88,46 @@ def global_mesh(data: Optional[int] = None,
     return mesh_lib.make_mesh(data=data, band=band)
 
 
+def _process_rows(config: Configuration, counts: Sequence[int],
+                  pid: int) -> Optional[Tuple[int, int]]:
+    """The JAX package's rows of process ``pid`` when process p holds
+    ``counts[p]`` devices: ``height / sum(counts)`` image rows a device in
+    rank order, or None when the height does not divide (the plane is
+    then replicated)."""
+    ndev = sum(counts)
+    if config.height % ndev:
+        return None
+    per = config.height // ndev
+    first = sum(counts[:pid])
+    return per * first, per * (first + counts[pid])
+
+
+def _block_rows(config: Configuration, y0: int, y1: int) -> Tuple[int, int]:
+    """The block rows whose first image row lies in ``[y0, y1)``."""
+    D = config.dct_size * config.block_size
+    return -(-y0 // D), min(-(-y1 // D), config.blocks_high)
+
+
 def host_rows(config: Configuration, nproc: Optional[int] = None,
-              pid: Optional[int] = None) -> Tuple[int, int, int, int]:
-    """Process ``pid``'s share of a plane: ``(r0, r1, y0, y1)``, block rows
-    ``[r0, r1)`` and image rows ``[y0, y1)``, the block rows split in
-    ``ceil(rows / nproc)`` parts in rank order (possibly empty at the
-    end).  A row count divisible by ``nproc * dct_size * block_size``
-    gives ``height // nproc`` rows each."""
+              pid: Optional[int] = None,
+              mesh: Optional[mesh_lib.Mesh] = None
+              ) -> Tuple[int, int, int, int]:
+    """Process ``pid``'s part of a plane, ``(r0, r1, y0, y1)``, under the
+    JAX package's rule, each of the ``nproc`` processes holding as many
+    devices as ``mesh`` (default :func:`global_mesh`).
+
+    Image rows ``[y0, y1)``: ``height / (nproc * devices)`` rows a device,
+    in rank order, whenever the height divides by the global device count
+    (what :func:`compress_plane_distributed` takes and
+    :func:`decompress_plane_distributed` returns); else the whole plane
+    (what the decode returns; the encode raises).  Block rows ``[r0,
+    r1)``: those whose first image row lies in ``[y0, y1)``, which this
+    process encodes (possibly none)."""
     nproc = process_count() if nproc is None else nproc
     pid = process_index() if pid is None else pid
-    rows = config.blocks_high
-    per = -(-rows // nproc)
-    r0, r1 = min(pid * per, rows), min((pid + 1) * per, rows)
-    D = config.dct_size * config.block_size
-    return r0, r1, min(r0 * D, config.height), min(r1 * D, config.height)
+    n = (global_mesh() if mesh is None else mesh).devices.size
+    y0, y1 = _process_rows(config, [n] * nproc, pid) or (0, config.height)
+    return (*_block_rows(config, y0, y1), y0, y1)
 
 
 def _all_gather(t: torch.Tensor) -> torch.Tensor:
@@ -106,6 +138,29 @@ def _all_gather(t: torch.Tensor) -> torch.Tensor:
     return torch.stack(out)
 
 
+def _halo_rows(plane: np.ndarray, config: Configuration, counts,
+               pid: int, y0: int, y1: int, r1: int) -> np.ndarray:
+    """This process's rows followed by the rows ``[y1, min(r1 * D,
+    height))`` that its last block row needs from the next processes.
+    Every process sends its first ``D - 1`` rows (zero-padded), one
+    ``all_gather``: a block row lacks fewer than D rows, and every row it
+    lacks lies within the first D - 1 of the process holding it."""
+    D = config.dct_size * config.block_size
+    if D == 1:
+        return plane
+    first = np.zeros((D - 1, config.width), np.float64)
+    first[:min(D - 1, len(plane))] = plane[:D - 1]
+    halos = _all_gather(torch.from_numpy(first)).numpy()
+    end = min(r1 * D, config.height)
+    parts, have, k = [plane], y1, pid + 1
+    while have < end:
+        ky0, ky1 = _process_rows(config, counts, k)
+        take = min(end, ky1) - ky0
+        parts.append(halos[k, :take].astype(plane.dtype))
+        have, k = ky0 + take, k + 1
+    return np.concatenate(parts)
+
+
 def compress_plane_distributed(plane, config: Configuration, mesh=None,
                                dtype=None) -> bytes:
     """Row-band compress across all processes; every process returns the
@@ -113,28 +168,50 @@ def compress_plane_distributed(plane, config: Configuration, mesh=None,
 
     Args:
       plane: with one process, the full (H, W) band; with several, this
-        process's rows ``[y0, y1)`` of :func:`host_rows`.
+        process's rows ``[y0, y1)`` of :func:`host_rows`:
+        ``height / devices`` rows for each of its devices.  A height that
+        does not divide by the global device count raises ``ValueError``,
+        as in the JAX package.
       mesh: this process's devices (default :func:`global_mesh`).
     """
-    nproc = process_count()
+    nproc, pid = process_count(), process_index()
     if mesh is None:
         mesh = global_mesh()
-    r0, r1, y0, y1 = host_rows(config, nproc, process_index())
     plane = np.asarray(plane)
-    if plane.shape != (y1 - y0, config.width):
+    info = [[mesh.devices.size,
+             *(plane.shape if plane.ndim == 2 else (-1, -1))]]
+    if nproc > 1:
+        # Every process's device count and plane shape, so that every
+        # process raises the same error, or none does.
+        info = _all_gather(torch.tensor(info[0])).tolist()
+    counts = [c for c, _, _ in info]
+    if nproc > 1 and _process_rows(config, counts, 0) is None:
         raise ValueError(
-            f"process {process_index()} of {nproc} holds image rows "
-            f"[{y0}, {y1}) of {config.height}: expected a plane of shape "
-            f"{(y1 - y0, config.width)}, got {plane.shape}")
-    # This process's block rows, entropy-coded on the host as in the JAX
-    # package, under the configuration of their height.
-    local = b"" if r0 == r1 else sharded.compress_plane(
-        plane, sharded._row_config(config, r0, r1)[0], mesh, dtype=dtype)
+            f"multi-host row-band tiling needs height {config.height} "
+            f"divisible by {sum(counts)} devices")
+    for p, (_, h, w) in enumerate(info):
+        y0, y1 = _process_rows(config, counts, p) or (0, config.height)
+        if (h, w) != (y1 - y0, config.width):
+            raise ValueError(
+                f"process {p} of {nproc} holds image rows [{y0}, {y1}) of "
+                f"{config.height}: expected a plane of shape "
+                f"{(y1 - y0, config.width)}, got {(h, w)}")
     if nproc <= 1:
-        return local
+        return sharded.compress_plane(plane, config, mesh, dtype=dtype)
+    y0, y1 = _process_rows(config, counts, pid)
+    r0, r1 = _block_rows(config, y0, y1)
+    rows = _halo_rows(plane, config, counts, pid, y0, y1, r1)
+    # This process's block rows, on the whole image's branch, entropy-coded
+    # on the host as in the JAX package.
+    local = b""
+    if r0 < r1:
+        D = config.dct_size * config.block_size
+        local = sharded._encode_shares(
+            rows[r0 * D - y0:][None, :, :, None], config,
+            sharded._row_range_shares(mesh, r0, r1), dtype, False,
+            y_off=r0 * D)[0]
     # All-gather (first block row, length), then the padded bytes; stitch
-    # in global block order.  Duplicate starts would be the same rows held
-    # twice: keep one copy.  A process without rows sends nothing.
+    # in global block order.  A process without block rows sends nothing.
     meta = _all_gather(torch.tensor([r0, len(local)], dtype=torch.int64))
     cap = max(int(meta[:, 1].max()), 1)
     padded = torch.zeros(cap, dtype=torch.uint8)
@@ -143,13 +220,9 @@ def compress_plane_distributed(plane, config: Configuration, mesh=None,
                                                dtype=torch.uint8)
     streams = _all_gather(padded).numpy()
     meta = meta.numpy()
-    parts, last_start = [], None
-    for p in np.argsort(meta[:, 0], kind="stable"):
-        if meta[p, 1] == 0 or int(meta[p, 0]) == last_start:
-            continue
-        last_start = int(meta[p, 0])
-        parts.append(streams[p, :int(meta[p, 1])].tobytes())
-    return sharded.stitch_streams(parts)
+    return sharded.stitch_streams(
+        [streams[p, :int(meta[p, 1])].tobytes()
+         for p in np.argsort(meta[:, 0], kind="stable") if meta[p, 1]])
 
 
 def decompress_plane_distributed(stream: bytes, config: Configuration,
@@ -161,21 +234,25 @@ def decompress_plane_distributed(stream: bytes, config: Configuration,
         :func:`compress_plane_distributed` leaves it).
     Returns:
       this process's rows ``[y0, y1)`` of :func:`host_rows` as an int32
-      plane, equal to the serial decoder's rows (the whole plane for one
-      process).
+      plane, equal to the serial decoder's rows: the whole plane for one
+      process, and where the height does not divide by the global device
+      count (the JAX package replicates the plane there).
 
     Each process scans the whole stream on the host (scanning locally is
-    cheaper than shipping offsets) and decodes only its own block rows, on
-    its own devices: no collective is needed.
+    cheaper than shipping offsets) and decodes only the block rows that
+    hold its image rows, on its own devices; the one collective gathers
+    the processes' device counts.
     """
     if mesh is None:
         mesh = global_mesh()
-    r0, r1, y0, y1 = host_rows(config)
-    if r0 == r1:
-        return np.zeros((0, config.width), np.int32)
-    shares = [s._replace(r0=s.r0 + r0, r1=s.r1 + r0) for s in
-              sharded.row_shares(mesh, sharded._row_config(config, r0,
-                                                            r1)[0])]
+    y0, y1 = 0, config.height
+    if process_count() > 1:
+        n = torch.tensor([mesh.devices.size])
+        counts = _all_gather(n).flatten().tolist()
+        y0, y1 = _process_rows(config, counts, process_index()) or (y0, y1)
+    D = config.dct_size * config.block_size
+    shares = sharded._row_range_shares(mesh, y0 // D,
+                                       _block_rows(config, y0, y1)[1])
     planes = sharded._decode_shares(
         [bytes(stream)], config, shares, 1, dtype,
         sharded._default_entropy(mesh, None))

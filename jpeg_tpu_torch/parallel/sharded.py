@@ -18,10 +18,14 @@ and runs on its own device through the port's single-device pieces
 
 A share starts on a block row in pixel space (``dct_size * block_size``
 rows), so it is the image rows ``[r0 * D, min(r1 * D, height))`` encoded
-under the configuration of that height.  Only the last share reaches the
-image's bottom edge, and its edge padding is the whole image's: the
+under the configuration of that height, but on the whole image's branch
+of ``BandEncoder`` / ``BandDecoder`` (``_image=``): a share above a padded
+bottom edge runs ``sep_pad`` / ``blocks`` / ``chain`` as the serial call
+does, and computes the same per-block sums.  Only the last share reaches
+the image's bottom edge, and its edge padding is the whole image's: the
 padded sizes of ``ops/blocks.py`` shift by the share's first row, a
-multiple of both padding factors.  Columns are whole in every share.
+multiple of both padding factors.  Columns are whole in every share.  So
+the sharded bytes and planes equal the port's serial ones in f32 and f64.
 
 Entropy: every block's stream is byte-aligned (reference:
 rle_byte_stream.py:54-56), so the streams of a plane's shares concatenate
@@ -80,11 +84,16 @@ def row_shares(mesh: mesh_lib.Mesh, config: Configuration) -> List[Share]:
     """One plane's block rows in ``ceil(rows / devices)`` parts over the
     flattened mesh; more devices than block rows leave the last ones
     without a share."""
+    return _row_range_shares(mesh, 0, config.blocks_high)
+
+
+def _row_range_shares(mesh: mesh_lib.Mesh, r0: int, r1: int) -> List[Share]:
+    """Block rows ``[r0, r1)`` of one plane in ``ceil(rows / devices)``
+    parts over the flattened mesh, empty parts dropped."""
     devices = list(mesh.devices.flat)
-    rows = config.blocks_high
-    per = -(-rows // len(devices))
-    return [Share(dev, 0, 1, k * per, min((k + 1) * per, rows))
-            for k, dev in enumerate(devices) if k * per < rows]
+    per = -(-(r1 - r0) // len(devices))
+    return [Share(dev, 0, 1, r0 + k * per, min(r0 + (k + 1) * per, r1))
+            for k, dev in enumerate(devices) if k * per < r1 - r0]
 
 
 def batch_shares(mesh: mesh_lib.Mesh, config: Configuration,
@@ -114,26 +123,27 @@ def _check_amp(mx: int) -> None:
 
 
 def _share_levels(stack: np.ndarray, config: Configuration, share: Share,
-                  dtype) -> torch.Tensor:
-    """Upload a share's pixels and launch its coefficient transform:
-    ``(images, H, W, C)`` host stack -> ``(n * C, blocks, L)`` int32 levels
-    on the share's device, planes in image-major order."""
+                  dtype, y_off: int = 0) -> torch.Tensor:
+    """Upload a share's pixels and launch its coefficient transform on the
+    whole image's branch: ``(images, rows, W, C)`` host stack whose first
+    row is image row ``y_off`` -> ``(n * C, blocks, L)`` int32 levels on
+    the share's device, planes in image-major order."""
     cfg, y0, y1 = _row_config(config, share.r0, share.r1)
     x = torch.from_numpy(np.ascontiguousarray(
-        stack[share.i0:share.i1, y0:y1])).to(share.device)
+        stack[share.i0:share.i1, y0 - y_off:y1 - y_off])).to(share.device)
     planes = x.permute(0, 3, 1, 2).reshape(-1, y1 - y0, config.width)
-    return BandEncoder(cfg, dtype).to(share.device)(planes)
+    return BandEncoder(cfg, dtype, _image=config).to(share.device)(planes)
 
 
 def _encode_shares(stack: np.ndarray, config: Configuration,
-                   shares: Sequence[Share], dtype,
-                   device_entropy: bool) -> List[bytes]:
-    """Encode every plane of an ``(images, H, W, C)`` host stack; returns
-    the ``images * C`` plane streams, image-major."""
+                   shares: Sequence[Share], dtype, device_entropy: bool,
+                   y_off: int = 0) -> List[bytes]:
+    """Encode the shares' rows of every plane of an ``(images, rows, W,
+    C)`` host stack whose first row is image row ``y_off``; returns the
+    ``images * C`` plane streams of those rows, image-major."""
     n_img, C = stack.shape[0], stack.shape[3]
-    check_band_shape(stack.shape[1:3], config)
     # Every share's transform is launched before anything is pulled.
-    levels = [_share_levels(stack, config, s, dtype) for s in shares]
+    levels = [_share_levels(stack, config, s, dtype, y_off) for s in shares]
     if device_entropy:
         parts = _device_entropy(levels)
     else:
@@ -262,7 +272,7 @@ def _decode_share_planes(levels: Sequence[torch.Tensor],
     out = []
     for s, lv in zip(shares, levels):
         cfg, _, _ = _row_config(config, s.r0, s.r1)
-        out.append(BandDecoder(cfg, dtype).to(s.device)(
+        out.append(BandDecoder(cfg, dtype, _image=config).to(s.device)(
             lv.reshape(-1, cfg.num_blocks, L)))
     return out
 
@@ -300,10 +310,11 @@ def _default_entropy(mesh: mesh_lib.Mesh,
     return bool(device_entropy)
 
 
-def _plane_stack(plane) -> np.ndarray:
+def _plane_stack(plane, config: Configuration) -> np.ndarray:
     plane = np.asarray(plane)
     if plane.ndim != 2:
         raise ValueError(f"expected an (H, W) plane, got {plane.shape}")
+    check_band_shape(plane.shape, config)
     return plane[None, :, :, None]
 
 
@@ -333,9 +344,12 @@ def encode_batch_levels(bands, config: Configuration, mesh: mesh_lib.Mesh,
 
 def compress_plane(plane, config: Configuration, mesh: mesh_lib.Mesh,
                    dtype=None) -> bytes:
-    """Row-band-tiled single-plane compress, entropy-coded on the host;
-    bytes == the serial encoder's."""
-    return _encode_shares(_plane_stack(plane), config,
+    """Row-band-tiled single-plane compress, entropy-coded on the host.
+
+    Every share runs the whole image's ``BandEncoder`` branch, so the
+    sharded bytes equal the port's serial bytes (``api.compress_band``) in
+    f32 and f64."""
+    return _encode_shares(_plane_stack(plane, config), config,
                           row_shares(mesh, config), dtype, False)[0]
 
 
@@ -345,7 +359,7 @@ def compress_plane_device_entropy(plane, config: Configuration,
     (K1, K2); the host pulls each share's stream and concatenates.  An
     unrepresentable amplitude raises ``BadRleCodeError`` before any
     entropy coding."""
-    return _encode_shares(_plane_stack(plane), config,
+    return _encode_shares(_plane_stack(plane, config), config,
                           row_shares(mesh, config), dtype, True)[0]
 
 
@@ -376,6 +390,7 @@ def compress_batch(images, config: Configuration, mesh: mesh_lib.Mesh,
     images = np.asarray(images)
     if images.ndim != 4 or images.shape[3] != 3:
         raise ValueError(f"expected (B, H, W, 3) batch, got {images.shape}")
+    check_band_shape(images.shape[1:3], config)
     streams = _encode_shares(images, config,
                              batch_shares(mesh, config, images.shape[0]),
                              dtype, _default_entropy(mesh, device_entropy))

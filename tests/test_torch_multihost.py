@@ -5,12 +5,18 @@ Mirrors ``tests/test_multihost_2proc.py`` (2 and 4 processes) and
 processes join a gloo process group over localhost, each with four
 entries of ``torch.device("cpu")`` as its mesh, and
 
-* ``compress_plane_distributed`` gives every process the stitched stream,
-  byte-equal to the serial encoder's (f32; in f64 also to ``jpeg_tpu``'s),
-  on planes whose block rows split evenly, raggedly (a padded last row)
-  and over more processes than block rows;
-* ``decompress_plane_distributed``'s per-process rows reassemble into the
-  serial decoder's plane;
+* ``compress_plane_distributed`` takes each process's rows as the JAX
+  package splits them (``height / devices`` rows a device of the global
+  mesh: 24 rows each at H = 48 on two processes of four devices), and
+  gives every process the stitched stream, byte-equal to the serial
+  encoder's (f32; in f64 also to ``jpeg_tpu``'s), on planes whose block
+  rows straddle the processes' rows, at a padded height in f32 (ties:
+  quantization ``"none"``), and over more processes than block rows; a
+  height that does not divide by the global device count raises
+  ``ValueError``, as in the JAX package;
+* ``decompress_plane_distributed`` returns each process the rows JAX's
+  rule gives it (the whole plane where the height does not divide),
+  equal to the serial decoder's;
 * ``compress_batch_distributed``'s manifest is identical on every process
   and its blobs equal per-image ``compress_ycbcr``;
 * ``python -m jpeg_tpu_torch batch --distributed`` writes, over both
@@ -33,15 +39,24 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
 CHILD_TIMEOUT_S = 240
-# (name, height, width): block rows that split evenly over 2 and 4
-# processes, a ragged split with a padded last row, and 2 block rows (4
-# processes leave two without a share).
-PLANES = (("even", 128, 128), ("ragged", 100, 40), ("short", 32, 40))
+# (name, height, width, quantization, devices a process): block rows that
+# split evenly over 2 and 4 processes; H = 48 (24 image rows a process on
+# two processes: block row 1 straddles them); 2 block rows (4 processes
+# leave two without one); a padded height with ties (the 64 x 40
+# sharding reproducer, 2 devices a process: on 4 processes a block row
+# takes rows from two later processes); a height no global device count
+# divides.
+PLANES = (("even", 128, 128, "qtable", 4), ("h48", 48, 40, "qtable", 4),
+          ("short", 32, 40, "qtable", 4), ("padded", 40, 64, "none", 2),
+          ("indivisible", 100, 40, "qtable", 4))
+DTYPES = (("f32", None), ("f64", torch.float64))
 BATCH_HW = (40, 56)
 BATCH_N = 5
 
 
-def synth_plane(h, w):
+def synth_plane(name, h, w):
+    if name == "padded":
+        return np.random.default_rng(1).integers(0, 256, (h, w))
     y, x = np.mgrid[0:h, 0:w].astype(np.float64)
     return np.clip(128 + 80 * np.sin(x / 7.0) * np.cos(y / 5.0)
                    + 25 * np.sin((x + 2 * y) / 11.0), 0, 255).astype(int)
@@ -56,10 +71,20 @@ def synth_image(h, w, seed):
     return np.stack(bands, axis=-1).astype(np.uint8)
 
 
-def _config(h, w):
+def _config(h, w, q="qtable"):
     from jpeg_tpu_torch import Configuration, QuantizationMethod
     return Configuration(width=w, height=h, block_size=2, dct_size=8,
-                         quantization=QuantizationMethod("qtable"))
+                         quantization=QuantizationMethod(q))
+
+
+def jax_rows(h, nproc, pid, ndev):
+    """The JAX package's image rows of process ``pid`` with ``ndev``
+    devices a process, computed by hand: ``h / (nproc * ndev)`` rows a
+    device where that divides, else the whole (replicated) plane."""
+    if h % (nproc * ndev):
+        return 0, h
+    per = h // (nproc * ndev) * ndev
+    return pid * per, (pid + 1) * per
 
 
 def child(port, nproc, pid, outdir):
@@ -70,20 +95,42 @@ def child(port, nproc, pid, outdir):
     try:
         assert multihost.process_count() == nproc
         assert multihost.process_index() == pid
-        mesh = parallel.make_mesh(devices=[torch.device("cpu")] * 4)
-        for name, h, w in PLANES:
-            cfg = _config(h, w)
-            _, _, y0, y1 = multihost.host_rows(cfg)
-            local = synth_plane(h, w)[y0:y1]
-            for tag, dtype in (("f32", None), ("f64", torch.float64)):
-                stream = multihost.compress_plane_distributed(
-                    local, cfg, mesh, dtype=dtype)
-                with open(os.path.join(
-                        outdir, f"stream_{name}_{tag}_{pid}.bin"), "wb") as f:
-                    f.write(stream)
-            rows = multihost.decompress_plane_distributed(stream, cfg, mesh,
-                                                          dtype=dtype)
-            np.save(os.path.join(outdir, f"rows_{name}_{pid}.npy"), rows)
+        import jpeg_tpu_torch
+        for name, h, w, q, ndev in PLANES:
+            cfg = _config(h, w, q)
+            mesh = parallel.make_mesh(devices=[torch.device("cpu")] * ndev)
+            _, _, y0, y1 = multihost.host_rows(cfg, mesh=mesh)
+            assert (y0, y1) == jax_rows(h, nproc, pid, ndev)
+            plane = synth_plane(name, h, w)
+            for tag, dtype in DTYPES:
+                out = os.path.join(outdir, f"{{}}_{name}_{tag}_{pid}")
+                if h % (nproc * ndev):
+                    try:
+                        multihost.compress_plane_distributed(
+                            plane, cfg, mesh, dtype=dtype)
+                    except ValueError as e:
+                        with open(out.format("raised"), "w") as f:
+                            f.write(str(e))
+                    stream = jpeg_tpu_torch.compress_band(
+                        plane, cfg, dtype, device="cpu")
+                else:
+                    if name == "h48" and dtype is None:
+                        # one process's slice one row short: every process
+                        # raises, none waits in a collective
+                        short = plane[y0:y1 - (pid == nproc - 1)]
+                        try:
+                            multihost.compress_plane_distributed(
+                                short, cfg, mesh, dtype=dtype)
+                        except ValueError as e:
+                            with open(out.format("badshape"), "w") as f:
+                                f.write(str(e))
+                    stream = multihost.compress_plane_distributed(
+                        plane[y0:y1], cfg, mesh, dtype=dtype)
+                    with open(out.format("stream") + ".bin", "wb") as f:
+                        f.write(stream)
+                np.save(out.format("rows") + ".npy",
+                        multihost.decompress_plane_distributed(
+                            stream, cfg, mesh, dtype=dtype))
 
         # Batch phase: only OWNED images may ever be loaded.
         cfg = _config(*BATCH_HW)
@@ -153,26 +200,38 @@ def _check_group(nproc, tmp_path):
     import jpeg_tpu
     from jpeg_tpu import api as japi
     import jpeg_tpu_torch
-    for name, h, w in PLANES:
-        cfg = _config(h, w)
-        plane = synth_plane(h, w)
+    for name, h, w, q, ndev in PLANES:
+        cfg = _config(h, w, q)
+        plane = synth_plane(name, h, w)
         want = jpeg_tpu_torch.compress_band(plane, cfg, device="cpu")
         jcfg = jpeg_tpu.Configuration(
             width=w, height=h, block_size=2, dct_size=8,
-            quantization=jpeg_tpu.QuantizationMethod("qtable"))
+            quantization=jpeg_tpu.QuantizationMethod(q))
         want64 = japi.compress_band(plane, jcfg, dtype=np.float64)
-        for tag, ref in (("f32", want), ("f64", want64)):
-            streams = [(tmp_path / f"stream_{name}_{tag}_{pid}.bin")
-                       .read_bytes() for pid in range(nproc)]
-            assert all(s == streams[0] for s in streams), \
-                f"{name} {tag}: processes disagree"
-            assert streams[0] == ref, f"{name} {tag}: stitched != serial"
-        rows = [np.load(tmp_path / f"rows_{name}_{pid}.npy")
-                for pid in range(nproc)]
-        np.testing.assert_array_equal(
-            np.concatenate(rows, axis=0),
-            jpeg_tpu_torch.decompress_band(want64, cfg, torch.float64,
-                                           device="cpu"))
+        for (tag, dtype), ref in zip(DTYPES, (want, want64)):
+            if h % (nproc * ndev):
+                for pid in range(nproc):
+                    msg = (tmp_path / f"raised_{name}_{tag}_{pid}") \
+                        .read_text()
+                    assert f"divisible by {nproc * ndev} devices" in msg
+            else:
+                if name == "h48" and dtype is None:
+                    for pid in range(nproc):
+                        msg = (tmp_path / f"badshape_{name}_{tag}_{pid}") \
+                            .read_text()
+                        assert f"process {nproc - 1} of {nproc}" in msg
+                streams = [(tmp_path / f"stream_{name}_{tag}_{pid}.bin")
+                           .read_bytes() for pid in range(nproc)]
+                assert all(s == streams[0] for s in streams), \
+                    f"{name} {tag}: processes disagree"
+                assert streams[0] == ref, f"{name} {tag}: stitched != serial"
+            serial = jpeg_tpu_torch.decompress_band(ref, cfg, dtype,
+                                                    device="cpu")
+            for pid in range(nproc):
+                y0, y1 = jax_rows(h, nproc, pid, ndev)
+                np.testing.assert_array_equal(
+                    np.load(tmp_path / f"rows_{name}_{tag}_{pid}.npy"),
+                    serial[y0:y1], err_msg=f"{name} {tag} process {pid}")
 
     bcfg = _config(*BATCH_HW)
     manifests = [np.load(tmp_path / f"manifest_{pid}.npy")

@@ -590,14 +590,21 @@ def test_decompress_plane_distributed_single_process():
 @pytest.mark.parametrize("nproc,height", [(2, 128), (4, 128), (3, 100),
                                           (8, 48)])
 def test_host_rows_split_on_block_rows(nproc, height):
-    """Process shares tile the plane in rank order on block-row seams;
-    ``height // nproc`` each where the rows divide (the JAX tests'
-    split)."""
+    """The JAX package's split (one device a process): ``height // nproc``
+    image rows each in rank order where the height divides, else the
+    whole plane each; the block rows split on the processes holding their
+    first image rows."""
     tcfg, _ = _cfg(32, height, block_size=2)
     D = 16
-    rows = [multihost.host_rows(tcfg, nproc, p) for p in range(nproc)]
+    one = parallel.make_mesh(devices=[CPU])
+    rows = [multihost.host_rows(tcfg, nproc, p, one) for p in range(nproc)]
+    if height % nproc:
+        assert rows == [(0, tcfg.blocks_high, 0, height)] * nproc
+        return
     assert rows[0][2] == 0 and rows[-1][3] == height
+    assert rows[0][0] == 0 and rows[-1][1] == tcfg.blocks_high
     for (_, r1, _, y1), (r0, _, y0, _) in zip(rows, rows[1:]):
-        assert r1 == r0 and y1 == y0 and y0 % D in (0, height % D)
-    if tcfg.blocks_high % nproc == 0:
-        assert all(y1 - y0 == height // nproc for _, _, y0, y1 in rows)
+        assert r1 == r0 and y1 == y0
+    for r0, r1, y0, y1 in rows:
+        assert y1 - y0 == height // nproc
+        assert all(y0 <= r * D < y1 for r in range(r0, r1))
