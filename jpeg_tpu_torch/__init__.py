@@ -33,7 +33,8 @@ the reference's class-level objects beside it (``ops/transform.py``: ``DCT``,
 torch devices and stitches the byte-aligned streams (``multihost``: across
 processes over ``torch.distributed``); ``python -m jpeg_tpu_torch
 {compress|decompress|batch}`` is the CLI; ``utils/profiling.py`` holds
-``StageTimer``, ``trace`` and ``Metrics``.
+the span recorder of the decode path (``start_recording`` / ``span`` /
+``count`` / ``recorded``), ``StageTimer`` and ``Metrics``.
 """
 
 from .config import (BadArrayShapeError, BadQuantizationError,

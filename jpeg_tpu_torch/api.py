@@ -34,6 +34,7 @@ from .entropy import device_codec as DC
 from .entropy import device_scan as DS
 from .ops.band import BandDecoder, BandEncoder
 from .utils.device import caller_stream, resolve_device
+from .utils.profiling import carry, span
 
 
 def compress_band(a, config: Configuration, dtype=None, *,
@@ -200,8 +201,9 @@ def decompress_to_ycbcr(bytestream: bytes, dtype=None, *, device="cuda",
     :func:`.entropy.device_scan.scan_mode`.  Bit parsing, dequantize, IDCT
     and clamp run on ``device``.  Both scans give the same planes and the
     same errors."""
-    return _pull(_resolve_planes(_start_decompress(
-        bytestream, resolve_device(device), scan, dtype)))
+    with span("decode", request=True):
+        return _pull(_resolve_planes(_start_decompress(
+            bytestream, resolve_device(device), scan, dtype)))
 
 
 def decompress_to_device(bytestream: bytes, dtype=None, *, device="cuda",
@@ -210,8 +212,9 @@ def decompress_to_device(bytestream: bytes, dtype=None, *, device="cuda",
     not pulled to the host: for consumers whose next stage runs on the
     device.  ``.cpu().numpy().transpose(1, 2, 0)`` gives
     :func:`decompress_to_ycbcr`'s image."""
-    return _resolve_planes(_start_decompress(
-        bytestream, resolve_device(device), scan, dtype))
+    with span("decode", request=True):
+        return _resolve_planes(_start_decompress(
+            bytestream, resolve_device(device), scan, dtype))
 
 
 def decompress_many(blobs, dtype=None, depth: int = 2, *, device="cuda",
@@ -232,19 +235,22 @@ def decompress_many(blobs, dtype=None, depth: int = 2, *, device="cuda",
             return _pull(_resolve_planes(res))
 
     # One worker keeps the pulls in order.
-    with ThreadPoolExecutor(max_workers=1) as puller:
+    with span("decode", request=True), \
+            ThreadPoolExecutor(max_workers=1) as puller:
         for blob in blobs:
             if len(pending) >= depth:
                 out.append(pending.popleft().result())
             pending.append(puller.submit(
-                pull, _start_decompress(blob, dev, scan, dtype)))
+                carry(pull), _start_decompress(blob, dev, scan, dtype)))
         while pending:
             out.append(pending.popleft().result())
     return out
 
 
 def _pull(planes: torch.Tensor) -> np.ndarray:
-    return planes.cpu().numpy().transpose(1, 2, 0)
+    with span("decode.pull"):
+        host = planes.cpu()
+    return host.numpy().transpose(1, 2, 0)
 
 
 def _start_decompress(bytestream: bytes, dev: torch.device, scan: str,
@@ -255,7 +261,8 @@ def _start_decompress(bytestream: bytes, dev: torch.device, scan: str,
     zero-argument resolver that reads the scan's check when called
     (:func:`_resolve_planes`), so the caller's thread is free to launch the
     next image first."""
-    config, data = container.read_data(bytestream)
+    with span("decode.parse"):
+        config, data = container.read_data(bytestream)
     streams = [data.y, data.cb, data.cr]
     total = sum(map(len, streams))
     if DS.scan_mode(total, scan, dev) == "device" and config.num_blocks > 0:
@@ -285,13 +292,17 @@ def _foreign_decode(config: Configuration, streams, dev: torch.device,
     if any(len(s) < nb for s in streams):
         _device_scan_rejected(config, streams)
     decoder = BandDecoder(config, dtype).to(dev)
-    stream = DC.upload_stream(b"".join(streams), dev)
+    with span("decode.upload"):
+        stream = DC.upload_stream(b"".join(streams), dev)
     ends = np.cumsum([len(s) for s in streams])
-    starts, ok = DS.scan_bands_starts(stream, ends, nb, L)
+    with span("scan.device"):
+        starts, ok = DS.scan_bands_starts(stream, ends, nb, L)
     planes = decoder(DC.decode_stream(stream, starts, L).reshape(3, nb, L))
 
     def resolve() -> torch.Tensor:
-        if not bool(ok):
+        with span("decode.check"):
+            held = bool(ok)
+        if not held:
             _device_scan_rejected(config, streams)
         return planes
 
@@ -316,16 +327,20 @@ def _host_scan_decompress(config: Configuration, streams,
     on ``dev``."""
     nb, L = config.num_blocks, config.dct_size ** 2
     # Start the stream upload, then scan the three bands on host threads
-    # (the C++ scanner releases the GIL).
-    stream = DC.upload_stream(b"".join(streams), dev)
+    # (the C++ scanner releases the GIL), each under the caller's context
+    # so that its span's parent is this call's.
+    with span("decode.upload"):
+        stream = DC.upload_stream(b"".join(streams), dev)
     with ThreadPoolExecutor(max_workers=3) as pool:
-        scans = list(pool.map(
-            lambda s: entropy.scan_offsets(s, nb, L, scan="host"), streams))
+        scans = [f.result() for f in [
+            pool.submit(carry(entropy.scan_offsets), s, nb, L, scan="host")
+            for s in streams]]
     starts, off = [], 0
     for s, sc in zip(streams, scans):
         starts.append(sc.astype(np.int64) + off)
         off += len(s)
-    starts_t = torch.from_numpy(np.concatenate(starts)).to(dev)
+    with span("decode.upload"):
+        starts_t = torch.from_numpy(np.concatenate(starts)).to(dev)
     levels = DC.decode_stream(stream, starts_t, L)          # (3N, L)
     return BandDecoder(config, dtype).to(dev)(levels.reshape(3, nb, L))
 

@@ -16,6 +16,7 @@ import threading
 
 import numpy as np
 
+from ..utils.profiling import span
 from . import device_scan, numpy_codec
 from .numpy_codec import MAX_AMP, MAX_RUN, MAX_SIZE
 
@@ -75,7 +76,8 @@ def scan_offsets(data: bytes, num_blocks: int, L: int, scan: str = "auto",
     same errors (:func:`.device_scan.scan_offsets_hybrid`)."""
     if device_scan.scan_mode(len(data), scan, device) == "device":
         return device_scan.scan_offsets_hybrid(data, num_blocks, L, device)
-    return device_scan._host_scan(data, num_blocks, L)
+    with span("scan.host"):
+        return device_scan._host_scan(data, num_blocks, L)
 
 
 __all__ = ["MAX_AMP", "MAX_RUN", "MAX_SIZE", "decode_levels",

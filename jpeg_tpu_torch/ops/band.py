@@ -55,6 +55,7 @@ from torch import nn
 
 from ..config import Configuration
 from ..utils.device import full_f32_matmul, resolve_dtype
+from ..utils.profiling import count, span
 from . import blocks as B
 from . import kernels as K
 from . import quantize as Q
@@ -104,7 +105,18 @@ def _tensor(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
     return torch.tensor(np.asarray(a, np.float64)).to(dtype).contiguous()
 
 
-class BandEncoder(nn.Module):
+class _BandModule(nn.Module):
+    """What the two band modules share: their build (operators looked up
+    and cast, buffers registered) is the span ``band.build`` and counts
+    one ``band.builds``; the move of their buffers by ``.to`` is the span
+    ``band.to_device``."""
+
+    def to(self, *args, **kwargs):
+        with span("band.to_device"):
+            return super().to(*args, **kwargs)
+
+
+class BandEncoder(_BandModule):
     """(B, H, W) bands (any real dtype) -> (B, num_blocks, L) int32 levels.
 
     ``_image`` (private, for ``parallel/sharded.py``): the configuration of
@@ -114,30 +126,32 @@ class BandEncoder(nn.Module):
 
     def __init__(self, config: Configuration, dtype=None, *,
                  _image: Optional[Configuration] = None):
-        super().__init__()
-        _check_transform(config)
-        self.dtype = resolve_dtype(dtype)
-        d, bs = config.dct_size, config.block_size
-        self.branch = _encode_branch(
-            config if _image is None else _image, self.dtype)
-        self.config = config
-        self.d, self.bs, self.L = d, bs, d * d
-        if self.branch in ("separable", "sep_pad"):
-            fac = T.separable_encode_factor(
-                d, bs if self.branch == "separable" else 1)     # (d, D2)
-            self.register_buffer("fac_t", _tensor(fac.T, torch.float32))
-            self.register_buffer("zigzag", torch.tensor(
-                T.zigzag_permutation(d).astype(np.int64)))
-        elif self.branch == "combined":
-            op = T.combined_encode_operator(d, bs, "DFT")       # (L, D*D)
-            self.register_buffer("op_t", _tensor(op.T, torch.float32))
-        elif self.branch == "blocks":
-            self.register_buffer("op_t", _tensor(
-                T.dft_encode_operator(d).T, torch.float32))     # (L, L)
-        mul, div, mask = Q.epilogue_vectors(config.quantization, d)
-        self.register_buffer("mul", _tensor(mul, self.dtype))
-        self.register_buffer("div", _tensor(div, self.dtype))
-        self.register_buffer("mask", _tensor(mask, self.dtype))
+        count("band.builds")
+        with span("band.build"):
+            super().__init__()
+            _check_transform(config)
+            self.dtype = resolve_dtype(dtype)
+            d, bs = config.dct_size, config.block_size
+            self.branch = _encode_branch(
+                config if _image is None else _image, self.dtype)
+            self.config = config
+            self.d, self.bs, self.L = d, bs, d * d
+            if self.branch in ("separable", "sep_pad"):
+                fac = T.separable_encode_factor(
+                    d, bs if self.branch == "separable" else 1)     # (d, D2)
+                self.register_buffer("fac_t", _tensor(fac.T, torch.float32))
+                self.register_buffer("zigzag", torch.tensor(
+                    T.zigzag_permutation(d).astype(np.int64)))
+            elif self.branch == "combined":
+                op = T.combined_encode_operator(d, bs, "DFT")       # (L, D*D)
+                self.register_buffer("op_t", _tensor(op.T, torch.float32))
+            elif self.branch == "blocks":
+                self.register_buffer("op_t", _tensor(
+                    T.dft_encode_operator(d).T, torch.float32))     # (L, L)
+            mul, div, mask = Q.epilogue_vectors(config.quantization, d)
+            self.register_buffer("mul", _tensor(mul, self.dtype))
+            self.register_buffer("div", _tensor(div, self.dtype))
+            self.register_buffer("mask", _tensor(mask, self.dtype))
 
     def _sep2(self, x: torch.Tensor) -> torch.Tensor:
         """Separable DCT + zigzag of f32 planes whose last two dims are
@@ -186,7 +200,7 @@ class BandEncoder(nn.Module):
         return levels.to(torch.int32).reshape(nb, -1, L)
 
 
-class BandDecoder(nn.Module):
+class BandDecoder(_BandModule):
     """(B, num_blocks, L) int32 levels -> (B, H, W) uint8 planes.
 
     ``_image``: as :class:`BandEncoder`'s, the whole image's branch for a
@@ -194,24 +208,26 @@ class BandDecoder(nn.Module):
 
     def __init__(self, config: Configuration, dtype=None, *,
                  _image: Optional[Configuration] = None):
-        super().__init__()
-        _check_transform(config)
-        self.dtype = resolve_dtype(dtype)
-        d, bs = config.dct_size, config.block_size
-        deq = Q.dequant_int_vector(config.quantization, d)
-        self.branch = _decode_branch(
-            config if _image is None else _image, self.dtype, deq)
-        self.config = config
-        self.d, self.bs, self.D, self.L = d, bs, d * bs, d * d
-        if self.branch in ("kernel", "combined"):
-            op = T.combined_decode_operator(d, bs, config.transform)
-            self.register_buffer("op_t", _tensor(op.T, torch.float32))
-        elif self.branch == "chain":
-            op = (T.decode_operator(d) if config.transform == "DCT"
-                  else T.dft_decode_operator(d))
-            self.register_buffer("op_t", _tensor(op.T, torch.float32))
-        if self.branch == "kernel":
-            self.register_buffer("deq", torch.tensor(deq.astype(np.int32)))
+        count("band.builds")
+        with span("band.build"):
+            super().__init__()
+            _check_transform(config)
+            self.dtype = resolve_dtype(dtype)
+            d, bs = config.dct_size, config.block_size
+            deq = Q.dequant_int_vector(config.quantization, d)
+            self.branch = _decode_branch(
+                config if _image is None else _image, self.dtype, deq)
+            self.config = config
+            self.d, self.bs, self.D, self.L = d, bs, d * bs, d * d
+            if self.branch in ("kernel", "combined"):
+                op = T.combined_decode_operator(d, bs, config.transform)
+                self.register_buffer("op_t", _tensor(op.T, torch.float32))
+            elif self.branch == "chain":
+                op = (T.decode_operator(d) if config.transform == "DCT"
+                      else T.dft_decode_operator(d))
+                self.register_buffer("op_t", _tensor(op.T, torch.float32))
+            if self.branch == "kernel":
+                self.register_buffer("deq", torch.tensor(deq.astype(np.int32)))
 
     def forward(self, levels: torch.Tensor) -> torch.Tensor:
         cfg, d, D, L = self.config, self.d, self.D, self.L

@@ -1,25 +1,200 @@
-"""Tracing, timing and metrics.
+"""Spans, counters, stage timing and metrics.
 
-Counterpart of ``jpeg_tpu/utils/profiling.py``:
+Counterpart of ``jpeg_tpu/utils/profiling.py``, with the port's own span
+recorder:
 
-* :class:`StageTimer`: wall-clock time per named stage.  Values fenced on
-  the stage are waited for at its exit (the CUDA devices of their tensors
-  are synchronized), so the stage includes the device work it launched.
-* :func:`trace`: a ``torch.profiler`` scope that writes a Chrome / Perfetto
-  trace (JSON) into a directory when one is given.
+* :func:`span` / :func:`count`: named host spans and counters placed in
+  the codec where its work happens (container parse, stream upload,
+  boundary scan, band module build and move, the waits on the device).
+  Off unless :func:`start_recording` was called, and then free: ``span``
+  hands back one shared do-nothing context manager and ``count`` tests a
+  flag.  While recording, each span keeps its name, start and end
+  (``time.perf_counter_ns()``), its own id, its parent's id and the id of
+  its request (its root span, or the nearest span opened with
+  ``request=True``); :func:`recorded` returns them with the counters.  On
+  a thread a ``torch.profiler`` session records, a recorded span is also
+  a ``record_function`` range, so it lies on the profiler's timeline
+  beside the device's kernels (a default session records the thread that
+  started it; a range on another thread would reach no timeline and is
+  not opened).  Spans find their parent through a
+  ``contextvars.ContextVar``; work handed to another thread keeps its
+  parent when it runs through :func:`carry`.
+* :class:`StageTimer`: wall-clock time per named stage, each stage one
+  span.  Values fenced on the stage are waited for at its exit (the CUDA
+  devices of their tensors are synchronized), so the stage includes the
+  device work it launched.
 * :class:`Metrics`: the BASELINE.md metric set (megapixels/s, compressed
   bytes, compression ratio, PSNR) with one-line JSON reporting.
 """
 from __future__ import annotations
 
 import contextlib
+import contextvars
+import functools
+import itertools
 import json
-import os
+import threading
 import time
 from dataclasses import dataclass, field
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, NamedTuple, Optional, Tuple
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+
+class SpanRecord(NamedTuple):
+    """One finished span, times from ``time.perf_counter_ns()``."""
+    name: str
+    start_ns: int
+    end_ns: int
+    id: int
+    parent: Optional[int]      # the enclosing span's id, None at a root
+    request: int               # the id of the span that began the request
+
+
+@dataclass(frozen=True)
+class Recording:
+    """The spans and counters of one recording, in the order spans ended."""
+    spans: Tuple[SpanRecord, ...]
+    counts: Dict[str, int]
+
+    def seconds(self, *names: str) -> float:
+        """Summed duration of the spans with any of ``names``."""
+        return sum(s.end_ns - s.start_ns for s in self.spans
+                   if s.name in names) * 1e-9
+
+
+class _Recorder:
+    """The process's recording state: a depth of nested starts, the spans
+    of the current recording and its counters."""
+
+    def __init__(self) -> None:
+        self.on = False
+        self.depth = 0
+        self.lock = threading.Lock()
+        self.ids = itertools.count(1)
+        self.spans: list = []
+        self.counts: Dict[str, int] = {}
+
+
+_RECORDER = _Recorder()
+_OPEN: contextvars.ContextVar = contextvars.ContextVar(
+    "jpeg_tpu_torch_open_span", default=None)
+
+
+def start_recording() -> None:
+    """Start recording spans and counters.  Starts nest: each needs its
+    :func:`stop_recording`, and only the outermost clears the previous
+    recording."""
+    r = _RECORDER
+    with r.lock:
+        if r.depth == 0:
+            r.spans, r.counts = [], {}
+            r.on = True
+        r.depth += 1
+
+
+def stop_recording() -> None:
+    """End one :func:`start_recording`; the last one stops the recording,
+    whose spans and counters stay readable until the next start."""
+    r = _RECORDER
+    with r.lock:
+        if r.depth == 0:
+            raise RuntimeError("stop_recording() without start_recording()")
+        r.depth -= 1
+        r.on = r.depth > 0
+
+
+def recorded() -> Recording:
+    """The spans and counters of the current or last recording."""
+    r = _RECORDER
+    with r.lock:
+        return Recording(tuple(r.spans), dict(r.counts))
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` while recording."""
+    r = _RECORDER
+    if r.on:
+        with r.lock:
+            r.counts[name] = r.counts.get(name, 0) + n
+
+
+def _profiled_thread() -> bool:
+    """Whether a ``torch.profiler`` session records this thread's ranges:
+    the module flag first (no session, no call), then the thread's own
+    profiler state."""
+    return (_autograd_profiler._is_profiler_enabled
+            and torch.autograd._profiler_enabled())
+
+
+class _Span:
+    """A timed span.  Entered while recording, it takes an id and its
+    parent from the context, is the parent of spans opened inside it, and
+    is recorded at its exit (a ``record_function`` range too, on a thread
+    a ``torch.profiler`` session records; the span's own time includes
+    the range's); otherwise it only reads the clock."""
+
+    __slots__ = ("name", "new_request", "id", "parent", "request",
+                 "start_ns", "end_ns", "_sink", "_token", "_range")
+
+    def __init__(self, name: str, new_request: bool = False) -> None:
+        self.name = name
+        self.new_request = new_request
+        self._sink = self._range = None
+
+    def __enter__(self) -> "_Span":
+        self.start_ns = time.perf_counter_ns()
+        r = _RECORDER
+        if r.on:
+            self._sink = r.spans
+            up = _OPEN.get()
+            self.id = next(r.ids)
+            self.parent = None if up is None else up.id
+            self.request = (self.id if up is None or self.new_request
+                            else up.request)
+            self._token = _OPEN.set(self)
+            if _profiled_thread():
+                self._range = torch.profiler.record_function(self.name)
+                self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self._sink is not None:
+            if self._range is not None:
+                self._range.__exit__(*exc)
+            _OPEN.reset(self._token)
+            self.end_ns = time.perf_counter_ns()
+            self._sink.append(SpanRecord(self.name, self.start_ns,
+                                         self.end_ns, self.id, self.parent,
+                                         self.request))
+        else:
+            self.end_ns = time.perf_counter_ns()
+
+    @property
+    def seconds(self) -> float:
+        return (self.end_ns - self.start_ns) * 1e-9
+
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str, *, request: bool = False):
+    """A context manager around one piece of the codec's work, recorded
+    while recording is on; ``request=True`` makes it the root of a new
+    request (one call of the public API).  Off, it is one shared
+    do-nothing context manager."""
+    if not _RECORDER.on:
+        return _OFF
+    return _Span(name, request)
+
+
+def carry(fn):
+    """``fn`` bound to a copy of the calling thread's context, to hand to
+    another thread: spans it opens there have the caller's open span as
+    parent.  Bind once per task; one context cannot run on two threads at
+    once."""
+    return functools.partial(contextvars.copy_context().run, fn)
 
 
 def _cuda_devices(value, out: set) -> set:
@@ -50,7 +225,7 @@ class _StageScope:
 
 
 class StageTimer:
-    """Accumulates wall time per named stage.
+    """Accumulates wall time per named stage, each stage a span.
 
     Fence the stage's device outputs on the yielded scope, so the stage
     includes their execution (kernel launches return before the device
@@ -67,15 +242,19 @@ class StageTimer:
 
     @contextlib.contextmanager
     def stage(self, name: str) -> Iterator[_StageScope]:
+        """One span named ``name``: recorded like :func:`span`'s while
+        recording, timed always."""
         scope = _StageScope()
-        t0 = time.perf_counter()
+        sp = _Span(name)
         try:
-            yield scope
+            with sp:
+                try:
+                    yield scope
+                finally:
+                    for dev in _cuda_devices(scope._pending, set()):
+                        torch.cuda.synchronize(dev)
         finally:
-            for dev in _cuda_devices(scope._pending, set()):
-                torch.cuda.synchronize(dev)
-            dt = time.perf_counter() - t0
-            self.totals[name] = self.totals.get(name, 0.0) + dt
+            self.totals[name] = self.totals.get(name, 0.0) + sp.seconds
             self.counts[name] = self.counts.get(name, 0) + 1
 
     def report(self) -> Dict[str, float]:
@@ -88,25 +267,6 @@ class StageTimer:
                  f"x{self.counts[k]}"
                  for k, v in sorted(self.totals.items(), key=lambda kv: -kv[1])]
         return "\n".join(lines)
-
-
-@contextlib.contextmanager
-def trace(outdir: Optional[str]) -> Iterator[None]:
-    """``torch.profiler`` scope writing ``outdir/trace_<pid>_<ms>.json``
-    (Chrome / Perfetto format) at exit; a no-op when ``outdir`` is falsy.
-    Records host activity, and the device's where CUDA is available."""
-    if not outdir:
-        yield
-        return
-    from torch.profiler import ProfilerActivity, profile
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(outdir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield
-    prof.export_chrome_trace(os.path.join(
-        outdir, f"trace_{os.getpid()}_{int(time.time() * 1e3)}.json"))
 
 
 @dataclass

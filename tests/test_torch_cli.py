@@ -2,9 +2,8 @@
 
 Mirrors the single-process cases of ``tests/test_batch_cli.py`` (roundtrip
 and metrics, resume, corrupt input, ``--mesh`` equal to serial,
-``--decompress`` with a corrupt blob bisected, ``__main__`` dispatch, the
-profiler trace smoke), every command with ``--device cpu`` (the kernels'
-plain versions).  Also: the compress / decompress CLIs' output files are
+``--decompress`` with a corrupt blob bisected, ``__main__`` dispatch),
+every command with ``--device cpu`` (the kernels' plain versions).  Also: the compress / decompress CLIs' output files are
 byte-equal to ``jpeg_tpu.cli``'s in f64, the parsers take every flag of
 their JAX counterparts plus ``--device``, ``Metrics.to_dict()`` equals
 ``jpeg_tpu.utils.profiling.Metrics``' after the same ``add_image`` calls,
@@ -26,7 +25,7 @@ from jpeg_tpu_torch import parallel
 from jpeg_tpu_torch.cli import batch
 from jpeg_tpu_torch.cli import compress as C
 from jpeg_tpu_torch.cli import decompress as D
-from jpeg_tpu_torch.utils.profiling import Metrics, StageTimer, trace
+from jpeg_tpu_torch.utils.profiling import Metrics, StageTimer
 
 PIL = pytest.importorskip("PIL")
 from PIL import Image  # noqa: E402
@@ -225,17 +224,6 @@ def test_cli_default_device_raises_without_gpu(tmp_path):
         batch.main([str(tmp_path), str(tmp_path / "out")])
     with pytest.raises(RuntimeError, match="cuda"):
         batch.main([str(tmp_path), str(tmp_path / "out2"), "--mesh"])
-
-
-def test_profiler_trace_smoke(tmp_path):
-    with trace(str(tmp_path / "tr")):
-        torch.arange(8).sum()
-    files = list((tmp_path / "tr").rglob("*.json"))
-    assert files, "no trace output written"
-    assert "traceEvents" in json.loads(files[0].read_text())
-    with trace(None):   # disabled path is a no-op
-        pass
-    assert not (tmp_path / "None").exists()
 
 
 def test_module_main_dispatch(tmp_path, capsys):
