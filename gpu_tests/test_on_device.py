@@ -24,6 +24,8 @@ failure or skip.  Without a CUDA device every case skips (``conftest.py``).
 import hashlib
 import json
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -32,10 +34,12 @@ import torch
 from jpeg_tpu_torch import (Configuration, QuantizationMethod,
                             compress_band, compress_many, compress_ycbcr,
                             container, decompress_band, decompress_many,
-                            decompress_to_ycbcr, entropy, parallel, psnr)
+                            decompress_to_device, decompress_to_ycbcr,
+                            entropy, parallel, psnr)
 from jpeg_tpu_torch.container import CompressedData
 from jpeg_tpu_torch.entropy import device_codec as DC
 from jpeg_tpu_torch.entropy import device_scan as DS
+from jpeg_tpu_torch.ops import band as band_ops
 from jpeg_tpu_torch.ops import blocks as B
 from jpeg_tpu_torch.ops import kernels as K
 from jpeg_tpu_torch.ops import quantize as Q
@@ -525,3 +529,90 @@ def test_two_sweep_end_table_equals_single_on_chip():
                                                  cap=12))
     assert torch.equal(two, single)
     assert counts["scan_walk_capped"] == 1 and counts["scan_walk_resume"] == 1
+
+
+# ---------------------------------------------------------------------------
+# The band modules' buffer cache
+# ---------------------------------------------------------------------------
+
+def _host_to_device_bytes(fn, trace_dir):
+    """``fn()`` under a profiler session and the byte counts of the
+    host-to-device copies it made (the Chrome trace's ``gpu_memcpy``)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    path = os.path.join(trace_dir, f"trace{len(os.listdir(trace_dir))}.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return out, [e["args"]["bytes"] for e in events
+                 if e.get("cat") == "gpu_memcpy" and "HtoD" in e["name"]]
+
+
+def _two_profiled_decodes(blob_path, out_path):
+    """The child's side of the case below: two ``decompress_to_ycbcr`` of
+    one container in a fresh process, each under a profiler session; the
+    byte counts of each call's host-to-device copies, whether the answers
+    are equal and the first one's digest go to ``out_path`` as JSON."""
+    with open(blob_path, "rb") as f:
+        blob = f.read()
+    trace_dir = os.path.dirname(out_path)
+    (first, one), (second, two) = (
+        _host_to_device_bytes(lambda: decompress_to_ycbcr(blob), trace_dir)
+        for _ in range(2))
+    with open(out_path, "w") as f:
+        json.dump({"first": one, "second": two,
+                   "equal": bool(np.array_equal(first, second)),
+                   "digest": hashlib.sha256(first.tobytes()).hexdigest()}, f)
+
+
+def test_band_cache_keeps_the_d24_operator_on_chip(tmp_path):
+    """At d 24 (bs 4, a padded frame: K4 with the 9,216 x 576 operator,
+    21 MB in f32) the first ``decompress_to_ycbcr`` of a fresh process
+    copies the operator to the card; the second copies nothing of 21 MB or
+    more and gives the same planes.  The profiler runs in a child process,
+    so that the suite's process holds one session only, the tracing case's
+    (in one suite run with these two sessions in its process, that case
+    found no scan kernel in its trace).  Then, the cache cleared, a miss on
+    one CUDA stream and a hit from a second right after it both give the
+    serial planes, and no decode writes a cached tensor."""
+    cfg = _cfg(height=200, width=300, dct_size=24, block_size=4,
+               quantization=QuantizationMethod("divide", divisor=1000))
+    blob = compress_ycbcr(_synth(200, 300, seed=17), cfg)
+    serial = decompress_to_ycbcr(blob)
+    op_bytes = 576 * 9216 * 4
+    blob_path, out_path = tmp_path / "blob.bin", tmp_path / "copies.json"
+    blob_path.write_bytes(blob)
+    subprocess.run(
+        [sys.executable, "-c",
+         "import sys; sys.path.insert(0, sys.argv[1]); "
+         "import test_on_device as t; t._two_profiled_decodes(*sys.argv[2:])",
+         os.path.dirname(os.path.abspath(__file__)), str(blob_path),
+         str(out_path)], cwd=REPO, check=True, timeout=600)
+    child = json.loads(out_path.read_text())
+    assert max(child["first"]) >= op_bytes
+    assert child["second"] and max(child["second"]) < op_bytes
+    assert child["equal"]
+    assert child["digest"] == hashlib.sha256(serial.tobytes()).hexdigest()
+
+    band_ops._CACHE.clear()
+    want = torch.from_numpy(serial).permute(2, 0, 1).to(DEV)
+    one, two = torch.cuda.Stream(), torch.cuda.Stream()
+    with torch.cuda.stream(one):
+        missed = decompress_to_device(blob)
+    with torch.cuda.stream(two):
+        hit = decompress_to_device(blob)
+    torch.cuda.synchronize()
+    assert torch.equal(missed, want) and torch.equal(hit, want)
+    held = {k: (e.tensor, e.tensor.clone())
+            for k, e in band_ops._CACHE._entries.items()}
+    assert any(t.numel() == 576 * 9216 for t, _ in held.values())
+    for _ in range(3):
+        decompress_to_ycbcr(blob)
+        decompress_to_device(blob, scan="device")
+    torch.cuda.synchronize()
+    for k, (t, copy) in held.items():
+        assert band_ops._CACHE._entries[k].tensor is t
+        assert torch.equal(t, copy)

@@ -43,7 +43,7 @@ def compress_band(a, config: Configuration, dtype=None, *,
     ``device``, the entropy coding on the host."""
     dev = resolve_device(device)
     band = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-    levels = BandEncoder(config, dtype).to(dev)(band[None])[0]
+    levels = BandEncoder(config, dtype, device=dev)(band[None])[0]
     return entropy.encode_levels(levels.cpu().numpy())
 
 
@@ -54,8 +54,8 @@ def decompress_band(data: bytes, config: Configuration, dtype=None, *,
     dev = resolve_device(device)
     levels = entropy.decode_levels(bytes(data), config.num_blocks,
                                    config.dct_size ** 2)
-    plane = BandDecoder(config, dtype).to(dev)(torch.from_numpy(levels)[None]
-                                               .to(dev))[0]
+    plane = BandDecoder(config, dtype, device=dev)(
+        torch.from_numpy(levels)[None].to(dev))[0]
     return plane.cpu().numpy().astype(np.int32)
 
 
@@ -87,7 +87,7 @@ def _start_compress(ycbcr: np.ndarray, config: Configuration,
     if ycbcr.ndim != 3 or ycbcr.shape[2] != 3:
         raise ValueError(f"expected (H, W, 3) YCbCr array, got {ycbcr.shape}")
     img = torch.from_numpy(np.ascontiguousarray(ycbcr)).to(dev)
-    levels = BandEncoder(config, dtype).to(dev)(img.permute(2, 0, 1))
+    levels = BandEncoder(config, dtype, device=dev)(img.permute(2, 0, 1))
     flat = levels.reshape(-1, levels.shape[-1])
     bb = DC.block_bytes_of(flat).to(torch.int64)
     band_bytes = bb.reshape(3, -1).sum(dim=-1)
@@ -291,7 +291,7 @@ def _foreign_decode(config: Configuration, streams, dev: torch.device,
     nb, L = config.num_blocks, config.dct_size ** 2
     if any(len(s) < nb for s in streams):
         _device_scan_rejected(config, streams)
-    decoder = BandDecoder(config, dtype).to(dev)
+    decoder = BandDecoder(config, dtype, device=dev)
     with span("decode.upload"):
         stream = DC.upload_stream(b"".join(streams), dev)
     ends = np.cumsum([len(s) for s in streams])
@@ -342,7 +342,7 @@ def _host_scan_decompress(config: Configuration, streams,
     with span("decode.upload"):
         starts_t = torch.from_numpy(np.concatenate(starts)).to(dev)
     levels = DC.decode_stream(stream, starts_t, L)          # (3N, L)
-    return BandDecoder(config, dtype).to(dev)(levels.reshape(3, nb, L))
+    return BandDecoder(config, dtype, device=dev)(levels.reshape(3, nb, L))
 
 
 # ---------------------------------------------------------------------------

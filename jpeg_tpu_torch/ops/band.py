@@ -1,10 +1,34 @@
 """Per-band coefficient pipeline: pixels <-> quantized zigzag levels.
 
-Counterpart of ``jpeg_tpu/ops/band.py`` as two ``nn.Module``s built per
-:class:`~jpeg_tpu_torch.config.Configuration` and working dtype.  They hold
-the operators and quantizer vectors as buffers (the codec's "weights",
-built in f64 by ``ops/transform.py`` / ``ops/quantize.py`` and cast to the
-working dtype once), so ``.to(device)`` moves a whole codec configuration.
+Counterpart of ``jpeg_tpu/ops/band.py`` as two ``nn.Module``s, built per
+call for a :class:`~jpeg_tpu_torch.config.Configuration`, a working dtype
+and a device.  They hold the operators and quantizer vectors as buffers
+(the codec's "weights", made in f64 by ``ops/transform.py`` /
+``ops/quantize.py``), taken from one cache of the process that keeps each
+buffer cast and on its device:
+
+* **Key.** Exactly what the tensor is a function of: an operator by its
+  function of ``ops/transform.py`` and that function's arguments (``d``,
+  the effective block size, the transform), a quantizer vector by the
+  quantizer's ``to_json()`` and ``d``; then the tensor's dtype and its
+  ``torch.device``.  The branch is not cached: each module still picks it
+  from its configuration (a share's from the whole image's), then takes
+  the buffers that branch needs, so frames of every size at one setting
+  share one operator.
+* **Bound.** ``_CACHE_BYTES`` a device, least recently used out first;
+  the newest entry is always kept.
+* **Threads.** One lock guards the entries and a second serialises the
+  builds, so threads that miss together make one entry.  A module whose
+  buffers were all there counts ``band.cache_hits``; one that built any
+  counts ``band.builds``, and the building is the span ``band.build``.
+* **Streams.** A miss builds on the caller's current CUDA stream and
+  synchronises it before the entry is visible, so no hit reads before
+  the upload has landed.  A hit from another stream marks the tensors
+  used there (``record_stream``), so an evicted entry's memory is not
+  reused while that stream's kernels may still read it.
+* **No in-place writes.** A cached tensor is shared by every module of
+  its key: no code may write one in place (``copy_``, ``load_state_dict``
+  and the like).  ``.to(...)`` makes new tensors and keeps working.
 
 :class:`BandEncoder` takes ``make_encode``'s branches, chosen in its order
 (``branch`` names the one in use):
@@ -47,14 +71,16 @@ about it is elementwise torch on the module's device.
 """
 from __future__ import annotations
 
-from typing import Optional
+import threading
+from collections import OrderedDict
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
 from ..config import Configuration
-from ..utils.device import full_f32_matmul, resolve_dtype
+from ..utils.device import full_f32_matmul, resolve_device, resolve_dtype
 from ..utils.profiling import count, span
 from . import blocks as B
 from . import kernels as K
@@ -105,11 +131,107 @@ def _tensor(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
     return torch.tensor(np.asarray(a, np.float64)).to(dtype).contiguous()
 
 
+#: Bytes of cached buffers kept a device: a dozen d 24 decode operators
+#: (9,216 x 576 in f32, 21 MB each) beside the small ones.
+_CACHE_BYTES = 256 << 20
+
+
+class _Entry(NamedTuple):
+    tensor: torch.Tensor
+    device: torch.device
+    stream: Optional[torch.cuda.Stream]   # the CUDA stream that made it
+
+
+class _BufferCache:
+    """The band modules' buffers, cast and on their devices (see the
+    module's docstring).  Keys end with the device."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()          # the entries
+        self._build_lock = threading.Lock()    # one build at a time
+        self._entries: OrderedDict = OrderedDict()
+
+    def clear(self) -> None:
+        with self._lock:
+            self._entries.clear()
+
+    def _hit(self, key, stream) -> Optional[torch.Tensor]:
+        e = self._entries.get(key)
+        if e is None:
+            return None
+        self._entries.move_to_end(key)
+        if stream is not None and stream != e.stream:
+            e.tensor.record_stream(stream)
+        return e.tensor
+
+    def _put(self, key, tensor, device, stream) -> None:
+        self._entries[key] = _Entry(tensor, device, stream)
+        mine = [k for k, e in self._entries.items() if e.device == device]
+        held = sum(self._entries[k].tensor.nbytes for k in mine)
+        for k in mine[:-1]:                    # oldest first; keep the newest
+            if held <= _CACHE_BYTES:
+                break
+            held -= self._entries.pop(k).tensor.nbytes
+
+    def fetch(self, device: torch.device, wants):
+        """``wants``: (key, make) pairs, ``make()`` the tensor on the host.
+        Returns each key's tensor on ``device`` and whether any was built."""
+        stream = (torch.cuda.current_stream(device)
+                  if device.type == "cuda" else None)
+        keys = [(*key, device) for key, _ in wants]
+        with self._lock:
+            got = [self._hit(k, stream) for k in keys]
+        if all(t is not None for t in got):
+            return got, False
+        with self._build_lock:
+            with self._lock:                   # built by another thread?
+                got = [self._hit(k, stream) for k in keys]
+            missing = [i for i, t in enumerate(got) if t is None]
+            if missing:
+                with span("band.build"):
+                    for i in missing:
+                        got[i] = wants[i][1]().to(device)
+                    if stream is not None:
+                        stream.synchronize()
+                with self._lock:
+                    for i in missing:
+                        self._put(keys[i], got[i], device, stream)
+        return got, bool(missing)
+
+
+_CACHE = _BufferCache()
+
+
+def _operator(fn, *args):
+    """The cache's key and build of ``fn(*args)``, an operator of
+    ``ops/transform.py``, transposed and cast to f32."""
+    return ((fn, *args, torch.float32),
+            lambda: _tensor(fn(*args).T, torch.float32))
+
+
+def _epilogue(method, d: int, dtype: torch.dtype) -> dict:
+    """The cache's keys and builds of the quantizer's (mul, div, mask)."""
+    q = method.to_json()
+    return {name: ((Q.epilogue_vectors, name, q, d, dtype),
+                   lambda i=i: _tensor(Q.epilogue_vectors(method, d)[i],
+                                       dtype))
+            for i, name in enumerate(("mul", "div", "mask"))}
+
+
 class _BandModule(nn.Module):
-    """What the two band modules share: their build (operators looked up
-    and cast, buffers registered) is the span ``band.build`` and counts
-    one ``band.builds``; the move of their buffers by ``.to`` is the span
-    ``band.to_device``."""
+    """What the two band modules share: their buffers come from the cache
+    on ``device`` (the CPU by default), counting one ``band.cache_hits``
+    where all were there, else one ``band.builds``; the move of their
+    buffers by ``.to`` is the span ``band.to_device``."""
+
+    def _take(self, wants: dict, device) -> None:
+        """Register the buffers ``wants`` names (name -> (key, make))."""
+        got, built = _CACHE.fetch(
+            resolve_device("cpu" if device is None else device),
+            list(wants.values()))
+        count("band.builds" if built else "band.cache_hits")
+        for name, t in zip(wants, got):
+            self.register_buffer(name, t)
 
     def to(self, *args, **kwargs):
         with span("band.to_device"):
@@ -119,39 +241,37 @@ class _BandModule(nn.Module):
 class BandEncoder(_BandModule):
     """(B, H, W) bands (any real dtype) -> (B, num_blocks, L) int32 levels.
 
+    ``device``: where its buffers are, from the cache (the CPU by default).
     ``_image`` (private, for ``parallel/sharded.py``): the configuration of
     the whole image when ``config`` is a share of its block rows.  The
     branch is the whole image's, so a share computes the same per-block
     sums as the serial encode of those rows."""
 
-    def __init__(self, config: Configuration, dtype=None, *,
+    def __init__(self, config: Configuration, dtype=None, *, device=None,
                  _image: Optional[Configuration] = None):
-        count("band.builds")
-        with span("band.build"):
-            super().__init__()
-            _check_transform(config)
-            self.dtype = resolve_dtype(dtype)
-            d, bs = config.dct_size, config.block_size
-            self.branch = _encode_branch(
-                config if _image is None else _image, self.dtype)
-            self.config = config
-            self.d, self.bs, self.L = d, bs, d * d
-            if self.branch in ("separable", "sep_pad"):
-                fac = T.separable_encode_factor(
-                    d, bs if self.branch == "separable" else 1)     # (d, D2)
-                self.register_buffer("fac_t", _tensor(fac.T, torch.float32))
-                self.register_buffer("zigzag", torch.tensor(
-                    T.zigzag_permutation(d).astype(np.int64)))
-            elif self.branch == "combined":
-                op = T.combined_encode_operator(d, bs, "DFT")       # (L, D*D)
-                self.register_buffer("op_t", _tensor(op.T, torch.float32))
-            elif self.branch == "blocks":
-                self.register_buffer("op_t", _tensor(
-                    T.dft_encode_operator(d).T, torch.float32))     # (L, L)
-            mul, div, mask = Q.epilogue_vectors(config.quantization, d)
-            self.register_buffer("mul", _tensor(mul, self.dtype))
-            self.register_buffer("div", _tensor(div, self.dtype))
-            self.register_buffer("mask", _tensor(mask, self.dtype))
+        super().__init__()
+        _check_transform(config)
+        self.dtype = resolve_dtype(dtype)
+        d, bs = config.dct_size, config.block_size
+        self.branch = _encode_branch(
+            config if _image is None else _image, self.dtype)
+        self.config = config
+        self.d, self.bs, self.L = d, bs, d * d
+        wants = {}
+        if self.branch in ("separable", "sep_pad"):
+            wants["fac_t"] = _operator(                             # (D2, d)
+                T.separable_encode_factor, d,
+                bs if self.branch == "separable" else 1)
+            wants["zigzag"] = ((T.zigzag_permutation, d, torch.int64),
+                               lambda: torch.tensor(
+                                   T.zigzag_permutation(d).astype(np.int64)))
+        elif self.branch == "combined":
+            wants["op_t"] = _operator(                              # (D*D, L)
+                T.combined_encode_operator, d, bs, "DFT")
+        elif self.branch == "blocks":
+            wants["op_t"] = _operator(T.dft_encode_operator, d)     # (L, L)
+        wants.update(_epilogue(config.quantization, d, self.dtype))
+        self._take(wants, device)
 
     def _sep2(self, x: torch.Tensor) -> torch.Tensor:
         """Separable DCT + zigzag of f32 planes whose last two dims are
@@ -203,31 +323,33 @@ class BandEncoder(_BandModule):
 class BandDecoder(_BandModule):
     """(B, num_blocks, L) int32 levels -> (B, H, W) uint8 planes.
 
-    ``_image``: as :class:`BandEncoder`'s, the whole image's branch for a
-    share of its block rows."""
+    ``device``, ``_image``: as :class:`BandEncoder`'s (``_image`` gives a
+    share of the block rows the whole image's branch)."""
 
-    def __init__(self, config: Configuration, dtype=None, *,
+    def __init__(self, config: Configuration, dtype=None, *, device=None,
                  _image: Optional[Configuration] = None):
-        count("band.builds")
-        with span("band.build"):
-            super().__init__()
-            _check_transform(config)
-            self.dtype = resolve_dtype(dtype)
-            d, bs = config.dct_size, config.block_size
-            deq = Q.dequant_int_vector(config.quantization, d)
-            self.branch = _decode_branch(
-                config if _image is None else _image, self.dtype, deq)
-            self.config = config
-            self.d, self.bs, self.D, self.L = d, bs, d * bs, d * d
-            if self.branch in ("kernel", "combined"):
-                op = T.combined_decode_operator(d, bs, config.transform)
-                self.register_buffer("op_t", _tensor(op.T, torch.float32))
-            elif self.branch == "chain":
-                op = (T.decode_operator(d) if config.transform == "DCT"
-                      else T.dft_decode_operator(d))
-                self.register_buffer("op_t", _tensor(op.T, torch.float32))
-            if self.branch == "kernel":
-                self.register_buffer("deq", torch.tensor(deq.astype(np.int32)))
+        super().__init__()
+        _check_transform(config)
+        self.dtype = resolve_dtype(dtype)
+        d, bs = config.dct_size, config.block_size
+        deq = Q.dequant_int_vector(config.quantization, d)
+        self.branch = _decode_branch(
+            config if _image is None else _image, self.dtype, deq)
+        self.config = config
+        self.d, self.bs, self.D, self.L = d, bs, d * bs, d * d
+        wants = {}
+        if self.branch in ("kernel", "combined"):
+            wants["op_t"] = _operator(T.combined_decode_operator, d, bs,
+                                      config.transform)
+        elif self.branch == "chain":
+            wants["op_t"] = _operator(
+                T.decode_operator if config.transform == "DCT"
+                else T.dft_decode_operator, d)
+        if self.branch == "kernel":
+            q = config.quantization.to_json()
+            wants["deq"] = ((Q.dequant_int_vector, q, d, torch.int32),
+                            lambda: torch.tensor(deq.astype(np.int32)))
+        self._take(wants, device)
 
     def forward(self, levels: torch.Tensor) -> torch.Tensor:
         cfg, d, D, L = self.config, self.d, self.D, self.L

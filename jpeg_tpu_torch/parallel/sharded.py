@@ -132,7 +132,8 @@ def _share_levels(stack: np.ndarray, config: Configuration, share: Share,
     x = torch.from_numpy(np.ascontiguousarray(
         stack[share.i0:share.i1, y0 - y_off:y1 - y_off])).to(share.device)
     planes = x.permute(0, 3, 1, 2).reshape(-1, y1 - y0, config.width)
-    return BandEncoder(cfg, dtype, _image=config).to(share.device)(planes)
+    return BandEncoder(cfg, dtype, device=share.device,
+                       _image=config)(planes)
 
 
 def _encode_shares(stack: np.ndarray, config: Configuration,
@@ -272,7 +273,7 @@ def _decode_share_planes(levels: Sequence[torch.Tensor],
     out = []
     for s, lv in zip(shares, levels):
         cfg, _, _ = _row_config(config, s.r0, s.r1)
-        out.append(BandDecoder(cfg, dtype, _image=config).to(s.device)(
+        out.append(BandDecoder(cfg, dtype, device=s.device, _image=config)(
             lv.reshape(-1, cfg.num_blocks, L)))
     return out
 
