@@ -61,6 +61,7 @@ class RunView:
     traffic: Dict
     answers: int                  # answers returned in the window
     calls: int
+    call_s: List[float]           # each call's host-clock seconds
     window_s: float               # host clock
     container_bytes: float        # mean container size of those answers
     device: Optional[T.DeviceTrace]
@@ -148,6 +149,12 @@ def make_call(root: str, cell: manifest.Cell, api, device: str):
                 fr["width"], device)
 
 
+def percentile_ms(call_s: List[float], q: int) -> float:
+    """The q-th percentile (nearest rank) of the calls' seconds, in ms."""
+    s = sorted(call_s)
+    return s[max(0, math.ceil(q / 100 * len(s)) - 1)] * 1e3
+
+
 def end_to_end_value(name: str, setup_s: float, pixels: int,
                      window_s: float, call_s: List[float]) -> float:
     if name == "setup_s":
@@ -156,9 +163,7 @@ def end_to_end_value(name: str, setup_s: float, pixels: int,
         return pixels / window_s / 1e6
     m = re.fullmatch(r".+_p(\d+)_ms", name)
     if m:
-        q = int(m.group(1))
-        s = sorted(call_s)
-        return s[max(0, math.ceil(q / 100 * len(s)) - 1)] * 1e3
+        return percentile_ms(call_s, int(m.group(1)))
     raise ValueError(f"no rule computes the end-to-end metric {name!r}")
 
 
@@ -267,8 +272,8 @@ def execute(root: str, cell_name: str, seed: int, seconds: float,
         breakdown = {"device_ops": [[n, s] for n, s in dt.ops],
                      "idle_gaps": [[n, s] for n, s in dt.idle]}
         view = RunView(config, codec, traffic, answered, len(call_s),
-                       window_s, sum(sizes) / max(1, len(sizes)), dt, spans,
-                       log)
+                       call_s, window_s, sum(sizes) / max(1, len(sizes)), dt,
+                       spans, log)
         for m, r in readers:
             v = r.read(view, m["name"])
             if v is not None:

@@ -259,11 +259,46 @@ def test_result_line_keys(tiny_root, traced):
         assert set(c) == {"value", "limit"}
     names = set(r["metrics"])
     if traced:
-        assert names == {"band_build_ms.latency", "host_scan_ms.latency"}
+        # Off the card the device readers find no device events; every
+        # program span and counter, the benchmark's scan wrapper and the
+        # calls' tail read.
+        assert names == {f"{n}.latency" for n in (
+            "host_busy_ms", "device_wait_ms", "parse_ms", "upload_ms",
+            "band_operator_ms", "band_upload_ms", "band_builds",
+            "boundary_scan_ms", "host_scan_ms", "call_p95_ms")}
         assert set(r["breakdown"]) == {"device_ops", "idle_gaps"}
+        assert r["metrics"]["call_p95_ms.latency"]["value"] > 0
     else:
-        assert names == {"decode_p95_ms", "setup_s"}
+        assert names == {"decode_p10_ms", "setup_s"}
     json.dumps(r)
+
+
+def test_per_layer_metrics_move_what_their_cells_report():
+    """Each per-layer metric moves an end-to-end metric, and every cell it
+    names exists and reports that metric."""
+    m = load()
+    cells = {w["name"] for w in m["workloads"]}
+    e2e = {x["name"]: x for x in m["end_to_end"]}
+    for x in m["per_layer"]:
+        assert x["moves"] in e2e, x["name"]
+        for cell in x.get("workloads", []):
+            assert cell in cells, (x["name"], cell)
+            assert cell in e2e[x["moves"]].get("workloads", cells), x["name"]
+
+
+def test_every_per_layer_metric_has_a_reader():
+    """Every per-layer name resolves to a reader, every reader is named by
+    a per-layer entry, and the retired wrapper of the API's band module
+    build is gone with its entries."""
+    m = load()
+    for x in m["per_layer"]:
+        assert callable(manifest.metric_reader(ROOT, x["name"]).read)
+        assert not x["name"].startswith("band_build_ms")
+    readers = {f[:-3] for f in os.listdir(os.path.join(ROOT, "port_bench",
+                                                       "metrics"))
+               if f.endswith(".py")}
+    assert readers == {x["name"].split(".")[0] for x in m["per_layer"]}
+    assert "band_build_ms" not in readers
 
 
 def _run(args, cwd, env_extra):
@@ -344,6 +379,7 @@ def test_forbidden_names_compared_whole(monkeypatch):
 def test_percentile_is_nearest_rank():
     calls = [i / 1000 for i in range(1, 101)]        # 1 .. 100 ms
     assert harness.end_to_end_value("decode_p95_ms", 0, 0, 1, calls) == 95.0
+    assert harness.percentile_ms(calls, 5) == 5.0
     assert harness.end_to_end_value("decode_mps", 0, 4_000_000, 2.0,
                                     calls) == 2.0
     with pytest.raises(ValueError):
