@@ -21,6 +21,7 @@ runs where JAX is absent.  From the root of the repository:
 does not need).  ``chip_smoke.py`` runs it (phase 4g) and fails on any
 failure or skip.  Without a CUDA device every case skips (``conftest.py``).
 """
+import gc
 import hashlib
 import json
 import os
@@ -31,7 +32,7 @@ import numpy as np
 import pytest
 import torch
 
-from jpeg_tpu_torch import (Configuration, QuantizationMethod,
+from jpeg_tpu_torch import (Configuration, QuantizationMethod, api,
                             compress_band, compress_many, compress_ycbcr,
                             container, decompress_band, decompress_many,
                             decompress_to_device, decompress_to_ycbcr,
@@ -616,3 +617,89 @@ def test_band_cache_keeps_the_d24_operator_on_chip(tmp_path):
     for k, (t, copy) in held.items():
         assert band_ops._CACHE._entries[k].tensor is t
         assert torch.equal(t, copy)
+
+
+# ---------------------------------------------------------------------------
+# The plane pull into page-locked memory
+# ---------------------------------------------------------------------------
+
+def _profiled_pull(blob_path, out_path):
+    """The child's side of the case below: a warm ``decompress_to_ycbcr``
+    under a profiler session with spans recorded; the ``decode.pull``
+    ranges and the device-to-host copies of its Chrome trace, whether the
+    answer's block is pinned and its digest go to ``out_path`` as JSON."""
+    from jpeg_tpu_torch.utils import profiling
+    with open(blob_path, "rb") as f:
+        blob = f.read()
+    decompress_to_ycbcr(blob)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    profiling.start_recording()
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            answer = decompress_to_ycbcr(blob)
+    finally:
+        profiling.stop_recording()
+    path = os.path.join(os.path.dirname(out_path), "pull_trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    with open(out_path, "w") as f:
+        json.dump({
+            "pulls": [(e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                      if e.get("cat") == "user_annotation"
+                      and e["name"] == "decode.pull"],
+            "copies": [(e["name"], e["ts"], e["ts"] + e.get("dur", 0))
+                       for e in events if e.get("cat") == "gpu_memcpy"
+                       and "DtoH" in e["name"]],
+            "pinned": bool(answer.base.base.is_pinned()),
+            "digest": hashlib.sha256(answer.tobytes()).hexdigest()}, f)
+
+
+def test_pinned_pull_on_chip(tmp_path, monkeypatch):
+    """A d 24 ``decompress_to_ycbcr`` answer is a view of a page-locked
+    block, bit-equal to ``decompress_to_device(...).cpu()`` with its
+    strides; in a child process's profiler trace (one session there, as
+    in the case above) the call's one device-to-host copy lands in pinned
+    memory inside the span ``decode.pull``.  Answers held past a bound of
+    two blocks take the pageable pull, raise nothing and give the same
+    image, and the count of pinned bytes comes back when they die."""
+    cfg = _cfg(height=200, width=300, dct_size=24, block_size=4,
+               quantization=QuantizationMethod("divide", divisor=1000))
+    blob = compress_ycbcr(_synth(200, 300, seed=19), cfg)
+    want = decompress_to_device(blob).cpu().numpy().transpose(1, 2, 0)
+    answer = decompress_to_ycbcr(blob)
+    assert answer.base.base.is_pinned()
+    assert answer.shape == want.shape and answer.strides == want.strides
+    np.testing.assert_array_equal(answer, want)
+
+    blob_path, out_path = tmp_path / "blob.bin", tmp_path / "pull.json"
+    blob_path.write_bytes(blob)
+    subprocess.run(
+        [sys.executable, "-c",
+         "import sys; sys.path.insert(0, sys.argv[1]); "
+         "import test_on_device as t; t._profiled_pull(*sys.argv[2:])",
+         os.path.dirname(os.path.abspath(__file__)), str(blob_path),
+         str(out_path)], cwd=REPO, check=True, timeout=600)
+    child = json.loads(out_path.read_text())
+    assert child["pinned"]
+    assert child["digest"] == hashlib.sha256(want.tobytes()).hexdigest()
+    (p0, p1), = child["pulls"]
+    (name, c0, c1), = child["copies"]
+    assert "Pinned" in name and p0 <= c0 <= c1 <= p1, (name, child)
+
+    gc.collect()
+    one = 1 << (answer.nbytes - 1).bit_length()
+    base = api._PINNED.held
+    monkeypatch.setattr(api, "_PINNED_ANSWER_BYTES", base + 2 * one)
+    kept = [decompress_to_ycbcr(blob) for _ in range(4)]
+    assert [a.base.base.is_pinned() for a in kept] == [True, True,
+                                                       False, False]
+    for a in kept:
+        assert a.strides == want.strides
+        np.testing.assert_array_equal(a, want)
+    assert api._PINNED.held == base + 2 * one
+    del kept, answer
+    gc.collect()
+    assert api._PINNED.held == base - one

@@ -20,6 +20,8 @@ transforms (for small images: they loop over blocks).
 from __future__ import annotations
 
 import dataclasses
+import threading
+import weakref
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
@@ -34,7 +36,7 @@ from .entropy import device_codec as DC
 from .entropy import device_scan as DS
 from .ops.band import BandDecoder, BandEncoder
 from .utils.device import caller_stream, resolve_device
-from .utils.profiling import carry, span
+from .utils.profiling import carry, count, span
 
 
 def compress_band(a, config: Configuration, dtype=None, *,
@@ -200,7 +202,13 @@ def decompress_to_ycbcr(bytestream: bytes, dtype=None, *, device="cuda",
     device scan (kernels K6, K8); ``"auto"`` picks by
     :func:`.entropy.device_scan.scan_mode`.  Bit parsing, dequantize, IDCT
     and clamp run on ``device``.  Both scans give the same planes and the
-    same errors."""
+    same errors.
+
+    From a CUDA device the image lands in page-locked host memory: the
+    answer is a view of a pinned block, which goes back to the allocator
+    when the last view of it dies.  Live answers hold at most
+    ``_PINNED_ANSWER_BYTES`` of such blocks; past that, an answer lands in
+    pageable memory, as from the CPU (see :func:`_pull`)."""
     with span("decode", request=True):
         return _pull(_resolve_planes(_start_decompress(
             bytestream, resolve_device(device), scan, dtype)))
@@ -247,10 +255,78 @@ def decompress_many(blobs, dtype=None, depth: int = 2, *, device="cuda",
     return out
 
 
+#: Most page-locked memory that live answers of :func:`_pull` may hold,
+#: counted by the caching host allocator's blocks (a size rounded up to a
+#: power of two: a 4K frame's 24.9 MB takes 32 MiB).  A pull takes its
+#: block before it tests the bound, so the allocator may hold one block
+#: more than this.
+_PINNED_ANSWER_BYTES = 1 << 30
+
+
+class _PinnedAnswers:
+    """The page-locked bytes that live answers hold.  Answers are pulled on
+    the caller's thread or a ``decompress_many`` worker and die on any
+    thread, so one lock guards the count."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self.held = 0
+
+    def take(self, nbytes: int) -> bool:
+        """Count ``nbytes`` more if that stays within the bound."""
+        with self._lock:
+            if self.held + nbytes > _PINNED_ANSWER_BYTES:
+                return False
+            self.held += nbytes
+            return True
+
+    def give(self, nbytes: int) -> None:
+        with self._lock:
+            self.held -= nbytes
+
+
+_PINNED = _PinnedAnswers()
+
+
+def _pinned_empty(planes: torch.Tensor) -> Optional[torch.Tensor]:
+    """An uninitialised page-locked uint8 block shaped like ``planes``, or
+    None where they are not on a CUDA device (page-locked memory needs a
+    CUDA build).  The caching host allocator hands back a block whose
+    answer has died."""
+    if not planes.is_cuda:
+        return None
+    return torch.empty(planes.shape, dtype=torch.uint8, pin_memory=True)
+
+
 def _pull(planes: torch.Tensor) -> np.ndarray:
+    """(3, H, W) uint8 planes -> the (H, W, 3) image on the host, a
+    transposed view of a (3, H, W) array, as ``planes.cpu().numpy()
+    .transpose(1, 2, 0)`` gives.
+
+    CUDA planes are copied on the current stream into a page-locked block,
+    which runs at the link's rate where a pageable copy is staged through
+    CUDA's own small page-locked buffers; the stream is then synchronised.  The answer's
+    ``.base`` is the ndarray over the block and its ``.base`` the pinned
+    tensor.  A finalizer on that ndarray gives the block's bytes back to
+    the count once the answer and every view of it have died (one on the
+    tensor could fire while a view still reads its memory).  Live answers
+    hold at most ``_PINNED_ANSWER_BYTES``; past that, the pull takes the
+    pageable ``.cpu()`` path, as planes on the CPU do, and counts
+    ``decode.pull_pageable``.  The whole pull is the span ``decode.pull``."""
     with span("decode.pull"):
-        host = planes.cpu()
-    return host.numpy().transpose(1, 2, 0)
+        host = _pinned_empty(planes)
+        if host is not None:
+            # The allocator's block: the size rounded up to a power of 2.
+            nbytes = 1 << max(host.nbytes - 1, 0).bit_length()
+            if _PINNED.take(nbytes):
+                array = host.numpy()
+                weakref.finalize(array, _PINNED.give, nbytes)
+                host.copy_(planes, non_blocking=True)
+                if planes.is_cuda:
+                    torch.cuda.current_stream(planes.device).synchronize()
+                return array.transpose(1, 2, 0)
+            count("decode.pull_pageable")
+        return planes.cpu().numpy().transpose(1, 2, 0)
 
 
 def _start_decompress(bytestream: bytes, dev: torch.device, scan: str,

@@ -6,7 +6,8 @@ spans and counters placed in its decode path.
   id, the host scan's on the pool threads and the pull on the puller
   thread included; with the band modules' cache cleared, the first
   module counts ``band.builds`` inside one ``band.build`` span and every
-  later one ``band.cache_hits``.
+  later one ``band.cache_hits``; a pull past the pinned answers' bound
+  counts ``decode.pull_pageable``.
 * Off, ``span`` returns one shared object and nothing is recorded; the
   answers are bit-identical on and off.
 * Under a CPU ``torch.profiler`` session every span of the thread the
@@ -30,6 +31,7 @@ import pytest
 import torch
 
 import jpeg_tpu_torch as J
+from jpeg_tpu_torch import api
 from jpeg_tpu_torch.ops import band
 from jpeg_tpu_torch.ops.band import BandDecoder
 from jpeg_tpu_torch.utils import profiling as P
@@ -83,10 +85,11 @@ def _recorded_call(entry, blob, scan):
     return out, P.recorded()
 
 
-def _expected(entry, scan):
+def _expected(entry, scan, pageable=False):
     """The span names one call records, with their numbers, and its
     counters, the band modules' cache cleared before it: the first module
-    builds, the others find its buffers."""
+    builds, the others find its buffers.  ``pageable``: every pull found
+    the pinned answers' bound full and took the pageable path."""
     one = collections.Counter({"decode.parse": 1})
     if scan == "host":
         one.update({"decode.upload": 2, "scan.host": 3})
@@ -101,6 +104,8 @@ def _expected(entry, scan):
     counts = {"band.builds": 1}
     if n > 1:
         counts["band.cache_hits"] = n - 1
+    if pageable and one["decode.pull"]:
+        counts["decode.pull_pageable"] = n
     return want, counts
 
 
@@ -121,6 +126,23 @@ def test_decode_records_its_span_tree(blob, entry, scan):
         assert root.start_ns <= s.start_ns <= s.end_ns <= root.end_ns, s
     assert len({s.id for s in rec.spans}) == len(rec.spans)
     assert rec.counts == counts
+
+
+@pytest.mark.parametrize("scan", SCANS)
+@pytest.mark.parametrize("entry", ENTRIES)
+def test_a_pull_past_the_pinned_bound_is_counted(blob, entry, scan,
+                                                 monkeypatch):
+    """CPU tensors stand in for pinned blocks and the bound is 0: each pull
+    is pageable, counts ``decode.pull_pageable`` and records the span tree
+    of a pull within the bound."""
+    monkeypatch.setattr(api, "_pinned_empty", lambda planes: torch.empty(
+        planes.shape, dtype=torch.uint8))
+    monkeypatch.setattr(api, "_PINNED_ANSWER_BYTES", 0)
+    _, rec = _recorded_call(entry, blob, scan)
+    want, counts = _expected(entry, scan, pageable=True)
+    assert collections.Counter(s.name for s in rec.spans) == want
+    assert rec.counts == counts
+    assert api._PINNED.held == 0
 
 
 @pytest.mark.parametrize("entry", ENTRIES)
