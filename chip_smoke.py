@@ -93,13 +93,14 @@ result):
    ``_unit_groups``' block bytes to K1's, K1 + K2 at W exact to the host
    C++ encoder's stream.
 4. Drive the main path, ``compress_ycbcr`` -> ``decompress_to_ycbcr``
-   (host C++ boundary scan), at 2048x2048 and 3840x2160 (qtable, DCT,
-   dct_size 8, block_size 2) with every kernel's launch count reset just
-   before and read just after.  Check that each band stream is byte-equal
-   to the host C++ encoder's stream of the same levels, the container
-   re-parses, the levels agree with the f64 reference, PSNR is above 30 dB,
-   the planes equal the plain-version path's on the card except +-1 at
-   ties, and every kernel of the path was launched.  With the caller's
+   (``scan="host"``: the host C++ boundary scan), at 2048x2048 and
+   3840x2160 (qtable, DCT, dct_size 8, block_size 2) with every kernel's
+   launch count reset just before and read just after.  Check that each
+   band stream is byte-equal to the host C++ encoder's stream of the same
+   levels, the container re-parses, the levels agree with the f64
+   reference, PSNR is above 30 dB, the planes equal the plain-version
+   path's on the card except +-1 at ties, and every kernel of the path
+   was launched.  With the caller's
    TF32 switched on, the container is the same bytes and the caller's
    setting is left as it was.  Then drive the host-free path and the rest
    of the API the same way, counts reset just before and read just after:
@@ -110,6 +111,9 @@ result):
    ``entropy.scan_offsets(scan="device")`` must give each band's host
    starts, the device scan must accept both images' streams, each decode
    must have launched K3 once, and K6, K7 and K8 must have been launched.
+   Last, the default scan: ``decompress_to_ycbcr(blob)`` at 3840x2160,
+   counts reset just before, must take the device scan (K6 and K8
+   launched, K3 once) and give the host-scan planes bit for bit.
    Phase 4c drives the BASELINE configurations on the synthetic image, each
    through ``compress_ycbcr`` and ``decompress_to_ycbcr`` with both scans,
    counts reset just before and read just after each: (1) bs 4, DCT,
@@ -2099,13 +2103,14 @@ def main() -> int:
     results["encode_stream_rows_tables"]["err"] = max(
         results["encode_stream_rows_tables"]["err"], k9_err)
 
-    log("== phase 4: main path (compress_ycbcr -> decompress_to_ycbcr)")
+    log("== phase 4: main path (compress_ycbcr -> decompress_to_ycbcr, "
+        "scan='host')")
     images = {hw: synth_image(*hw) for hw in SIZES}
     runs = {}
     K.reset_launch_counts()
     for hw, im in images.items():
         blob = compress_ycbcr(im, cfg_for(*hw))
-        runs[hw] = (blob, decompress_to_ycbcr(blob))
+        runs[hw] = (blob, decompress_to_ycbcr(blob, scan="host"))
     counts = K.launch_counts()
     log(f"  launch counts over the main-path run: {counts}")
     check(all(counts[name] > 0 for name in MAIN_PATH),
@@ -2247,6 +2252,18 @@ def main() -> int:
           "either scan")
     check(all(counts_hf[name] > 0 for name in HOST_FREE_PATH),
           "K6, K7 and K8 were launched by the host-free run")
+    hw = (2160, 3840)
+    K.reset_launch_counts()
+    auto_rec = decompress_to_ycbcr(runs[hw][0])
+    counts_auto = K.launch_counts()
+    check(counts_auto["scan_walk"] > 0
+          and counts_auto["chase_starts_multi"] > 0
+          and counts_auto["decode_stream_blocks"] == 1,
+          f"{hw[0]}x{hw[1]}: the default scan took the device scan (K6 and "
+          f"K8 launched, K3 once: {counts_auto})")
+    check(np.array_equal(auto_rec, runs[hw][1]),
+          f"{hw[0]}x{hw[1]}: the default scan's planes bit-equal to "
+          "scan='host''s")
 
     log("== phase 4c: the BASELINE configurations (compress_ycbcr -> "
         "decompress_to_ycbcr, scan='host' and scan='device')")

@@ -289,19 +289,19 @@ def test_dft_kernel_matches_cublas_on_chip(img, monkeypatch):
 
 def test_foreign_decode_one_dispatch_on_chip(img):
     """The host-free decode (device scan K6 + K8, then K3, K4) reproduces
-    the default path bit for bit."""
+    the host-scan path bit for bit."""
     blob = compress_ycbcr(img, _cfg())
-    base = decompress_to_ycbcr(blob, scan="auto")
+    base = decompress_to_ycbcr(blob, scan="host")
     got, counts = _launched(lambda: decompress_to_ycbcr(blob, scan="device"))
     assert counts["scan_walk"] > 0 and counts["chase_starts_multi"] > 0
     np.testing.assert_array_equal(got, base)
 
 
 def test_device_decode_without_native_codec(img, monkeypatch):
-    """With no C++ codec the decode is unchanged: the auto scan picks the
-    device scan for streams of 1 KB and more."""
+    """With no C++ codec the decode is unchanged: the auto scan takes the
+    device scan, as it does with one, and gives the host scan's image."""
     blob = compress_ycbcr(img, _cfg())
-    want = decompress_to_ycbcr(blob)
+    want = decompress_to_ycbcr(blob, scan="host")
     monkeypatch.setattr(entropy, "_native", None)
     monkeypatch.setattr(entropy, "_native_checked", True)
     got, counts = _launched(lambda: decompress_to_ycbcr(blob))
@@ -625,9 +625,10 @@ def test_band_cache_keeps_the_d24_operator_on_chip(tmp_path):
 
 def _profiled_pull(blob_path, out_path):
     """The child's side of the case below: a warm ``decompress_to_ycbcr``
-    under a profiler session with spans recorded; the ``decode.pull``
-    ranges and the device-to-host copies of its Chrome trace, whether the
-    answer's block is pinned and its digest go to ``out_path`` as JSON."""
+    under a profiler session with spans recorded; the ``decode.pull`` and
+    ``decode.check`` ranges and the device-to-host copies of its Chrome
+    trace, whether the answer's block is pinned and its digest go to
+    ``out_path`` as JSON."""
     from jpeg_tpu_torch.utils import profiling
     with open(blob_path, "rb") as f:
         blob = f.read()
@@ -650,6 +651,9 @@ def _profiled_pull(blob_path, out_path):
             "pulls": [(e["ts"], e["ts"] + e.get("dur", 0)) for e in events
                       if e.get("cat") == "user_annotation"
                       and e["name"] == "decode.pull"],
+            "checks": [(e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                       if e.get("cat") == "user_annotation"
+                       and e["name"] == "decode.check"],
             "copies": [(e["name"], e["ts"], e["ts"] + e.get("dur", 0))
                        for e in events if e.get("cat") == "gpu_memcpy"
                        and "DtoH" in e["name"]],
@@ -661,10 +665,12 @@ def test_pinned_pull_on_chip(tmp_path, monkeypatch):
     """A d 24 ``decompress_to_ycbcr`` answer is a view of a page-locked
     block, bit-equal to ``decompress_to_device(...).cpu()`` with its
     strides; in a child process's profiler trace (one session there, as
-    in the case above) the call's one device-to-host copy lands in pinned
-    memory inside the span ``decode.pull``.  Answers held past a bound of
-    two blocks take the pageable pull, raise nothing and give the same
-    image, and the count of pinned bytes comes back when they die."""
+    in the case above) the call's one device-to-host copy inside the span
+    ``decode.pull`` lands in pinned memory, and at most one other, the
+    device scan's one-byte check (``scan="auto"`` takes the device scan),
+    lies inside ``decode.check``.  Answers held past a bound of two blocks
+    take the pageable pull, raise nothing and give the same image, and the
+    count of pinned bytes comes back when they die."""
     cfg = _cfg(height=200, width=300, dct_size=24, block_size=4,
                quantization=QuantizationMethod("divide", divisor=1000))
     blob = compress_ycbcr(_synth(200, 300, seed=19), cfg)
@@ -686,8 +692,13 @@ def test_pinned_pull_on_chip(tmp_path, monkeypatch):
     assert child["pinned"]
     assert child["digest"] == hashlib.sha256(want.tobytes()).hexdigest()
     (p0, p1), = child["pulls"]
-    (name, c0, c1), = child["copies"]
-    assert "Pinned" in name and p0 <= c0 <= c1 <= p1, (name, child)
+    in_pull = [c for c in child["copies"] if p0 <= c[1] <= c[2] <= p1]
+    in_check = [c for c in child["copies"]
+                if any(k0 <= c[1] <= c[2] <= k1 for k0, k1 in child["checks"])]
+    (name, _, _), = in_pull
+    assert "Pinned" in name, child
+    assert len(in_check) <= 1, child
+    assert len(in_pull) + len(in_check) == len(child["copies"]), child
 
     gc.collect()
     one = 1 << (answer.nbytes - 1).bit_length()
@@ -703,3 +714,155 @@ def test_pinned_pull_on_chip(tmp_path, monkeypatch):
     del kept, answer
     gc.collect()
     assert api._PINNED.held == base - one
+
+
+# ---------------------------------------------------------------------------
+# A decode's scan="auto": the device scan on a CUDA device
+# ---------------------------------------------------------------------------
+
+def _stream_bytes(blob):
+    _, data = container.read_data(blob)
+    return len(data.y) + len(data.cb) + len(data.cr)
+
+
+def _corrupted(blob):
+    """The first of a fixed list of changes to the luma stream's bytes that
+    the host scanner rejects."""
+    cfg, data = container.read_data(blob)
+    L = cfg.dct_size ** 2
+    head = len(blob) - _stream_bytes(blob)
+    for off in range(0, len(data.y), 7):
+        for mask in (0xFF, 0x0F, 0xF0):
+            bad = bytearray(blob)
+            bad[head + off] ^= mask
+            _, d = container.read_data(bytes(bad))
+            try:
+                for s in (d.y, d.cb, d.cr):
+                    DS._host_scan(s, cfg.num_blocks, L)
+            except Exception:
+                return bytes(bad)
+    raise AssertionError("no change of the list is rejected")
+
+
+def _error(fn):
+    try:
+        fn()
+    except Exception as e:          # the host scan's error, whatever it is
+        return type(e), str(e)
+    raise AssertionError("no error")
+
+
+def _profiled_auto_decode(blob_path, out_path):
+    """The child's side of the case below: a warm ``decompress_to_ycbcr``
+    with ``scan="auto"`` under a profiler session with spans recorded; the
+    names of the kernels of its Chrome trace, the recorded spans and
+    counters and the answer's digest go to ``out_path`` as JSON."""
+    from jpeg_tpu_torch.utils import profiling
+    with open(blob_path, "rb") as f:
+        blob = f.read()
+    decompress_to_ycbcr(blob)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    profiling.start_recording()
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            answer = decompress_to_ycbcr(blob)
+            torch.cuda.synchronize()
+    finally:
+        profiling.stop_recording()
+    rec = profiling.recorded()
+    path = os.path.join(os.path.dirname(out_path), "auto_trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    with open(out_path, "w") as f:
+        json.dump({
+            "kernels": sorted({e["name"] for e in events
+                               if e.get("cat") == "kernel"}),
+            "spans": [s.name for s in rec.spans],
+            "counts": rec.counts,
+            "digest": hashlib.sha256(answer.tobytes()).hexdigest()}, f)
+
+
+def test_auto_scan_takes_the_device_scan_at_4k_d24_on_chip(tmp_path):
+    """A 3840x2160 d 24 container (bs 4, divide 1000: the benchmark's
+    host->host configuration) through ``decompress_to_ycbcr()``: in a
+    child process's profiler trace (one session there, as in the cases
+    above) the call runs K6 (``scan_walk_kernel``) and K8
+    (``chain_kernel``), records ``scan.device`` and no ``scan.host``, and
+    counts ``scan.auto_device`` once; its image is bit-equal to
+    ``scan="host"``'s; a corrupted copy and a truncated one raise the host
+    scan's exception with its message."""
+    cfg = _cfg(height=2160, width=3840, dct_size=24, block_size=4,
+               quantization=QuantizationMethod("divide", divisor=1000))
+    blob = compress_ycbcr(_synth(2160, 3840, seed=23), cfg)
+    host = decompress_to_ycbcr(blob, scan="host")
+
+    blob_path, out_path = tmp_path / "blob.bin", tmp_path / "auto.json"
+    blob_path.write_bytes(blob)
+    subprocess.run(
+        [sys.executable, "-c",
+         "import sys; sys.path.insert(0, sys.argv[1]); "
+         "import test_on_device as t; t._profiled_auto_decode(*sys.argv[2:])",
+         os.path.dirname(os.path.abspath(__file__)), str(blob_path),
+         str(out_path)], cwd=REPO, check=True, timeout=600)
+    child = json.loads(out_path.read_text())
+    for k in ("scan_walk_kernel", "chain_kernel"):
+        assert any(k in n for n in child["kernels"]), (k, child["kernels"])
+    assert "scan.device" in child["spans"]
+    assert "scan.host" not in child["spans"]
+    assert child["counts"].get("scan.auto_device") == 1
+    assert child["digest"] == hashlib.sha256(host.tobytes()).hexdigest()
+
+    for bad in (_corrupted(blob), blob[:-3]):
+        want = _error(lambda: decompress_to_ycbcr(bad, scan="host"))
+        assert want[0] is not RuntimeError
+        assert _error(lambda: decompress_to_ycbcr(bad)) == want
+
+
+def test_auto_scan_takes_the_device_scan_at_one_block_on_chip():
+    """An 8x8 d 24 container, one block a band (9 to 60 bytes of stream),
+    takes the device scan too: one ``scan.device`` span, no ``scan.host``,
+    one count; the image is the host scan's."""
+    from jpeg_tpu_torch.utils import profiling
+    cfg = _cfg(height=8, width=8, dct_size=24, block_size=2,
+               quantization=QuantizationMethod("divide", divisor=1000))
+    blob = compress_ycbcr(_synth(8, 8, seed=29), cfg)
+    assert container.read_data(blob)[0].num_blocks == 1
+    profiling.start_recording()
+    try:
+        got = decompress_to_ycbcr(blob)
+    finally:
+        profiling.stop_recording()
+    rec = profiling.recorded()
+    names = [s.name for s in rec.spans]
+    assert names.count("scan.device") == 1 and "scan.host" not in names
+    assert rec.counts.get("scan.auto_device") == 1
+    np.testing.assert_array_equal(got, decompress_to_ycbcr(blob,
+                                                           scan="host"))
+
+
+@pytest.mark.parametrize("d,bs,transform", [
+    (d, bs, t) for d in (8, 24) for bs in (2, 4) for t in ("DCT", "DFT")])
+def test_auto_scan_equals_host_scan_on_chip(d, bs, transform):
+    """``scan="auto"`` (the device scan, counted once a call) gives ``scan="host"``'s image bit for bit, through
+    ``decompress_to_ycbcr``, ``decompress_many`` and ``Jpeg.decompress``."""
+    from jpeg_tpu_torch import Jpeg
+    from jpeg_tpu_torch.utils import profiling
+    cfg = _cfg(height=200, width=300, dct_size=d, block_size=bs,
+               transform=transform,
+               quantization=QuantizationMethod("divide", divisor=20))
+    blobs = [compress_ycbcr(_synth(200, 300, seed=31 + k), cfg)
+             for k in range(2)]
+    want = [decompress_to_ycbcr(b, scan="host") for b in blobs]
+    profiling.start_recording()
+    try:
+        got = ([decompress_to_ycbcr(b) for b in blobs]
+               + decompress_many(blobs)
+               + [np.asarray(Jpeg.decompress(b)) for b in blobs])
+    finally:
+        profiling.stop_recording()
+    assert profiling.recorded().counts.get("scan.auto_device") == 6
+    for g, w in zip(got, want * 3):
+        np.testing.assert_array_equal(g, w)

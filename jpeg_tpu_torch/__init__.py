@@ -12,7 +12,8 @@ The image API (``compress_ycbcr`` / ``compress_many``,
 ``Jpeg``) and the band API (``compress_band`` / ``decompress_band``) run
 hand-written CUDA kernels (``ops/kernels.py``, sources in ``csrc/``), built
 with ``nvcc`` at first use.  Decode finds the block boundaries with the
-host C++ scan or on the device (``scan=``).  Positional parameters are
+host C++ scan or on the device (``scan=``; ``"auto"`` scans on the device
+on a GPU).  Positional parameters are
 the reference's, in its order, ``dtype`` included: ``None`` (f32) or
 float64 (``torch.float64``, ``np.float64`` or ``"float64"``), the parity
 mode, bit-exact with the reference (small images: its transforms loop over

@@ -7,8 +7,10 @@ image functions.  ``compress_ycbcr`` / ``compress_many`` encode with device
 entropy coding (the content-sized two-phase encode);
 ``decompress_to_ycbcr`` / ``decompress_to_device`` / ``decompress_many``
 find the block boundaries with the host C++ scan or the device scan
-(``scan=``) and decode on the device.  Containers are the same bytes as the
-JAX package's.  Positional parameters are the reference's, in its order;
+(``scan=``; ``"auto"`` takes the device scan on a CUDA device and the host
+scan on the CPU) and decode on the device; both scans give the same planes
+and the same errors.  Containers are the same bytes as the JAX package's.
+Positional parameters are the reference's, in its order;
 ``device``, ``scan`` and ``enc`` are keyword-only after them.  Every function
 takes ``device``: ``"cuda"`` (the default) runs the hand-written kernels and
 raises without a GPU; ``"cpu"`` runs their plain PyTorch versions.  Every
@@ -199,10 +201,13 @@ def decompress_to_ycbcr(bytestream: bytes, dtype=None, *, device="cuda",
 
     The block boundaries come from the host's serial boundary scan (C++,
     which also validates the stream) or, with ``scan="device"``, from the
-    device scan (kernels K6, K8); ``"auto"`` picks by
-    :func:`.entropy.device_scan.scan_mode`.  Bit parsing, dequantize, IDCT
-    and clamp run on ``device``.  Both scans give the same planes and the
-    same errors.
+    device scan (kernels K6, K8), whose starts stay on the device.
+    ``"auto"`` takes the device scan on a CUDA device, at every size, and
+    the host scan on the CPU (:func:`_decode_scan`).  Bit parsing,
+    dequantize, IDCT and clamp run on ``device``.  Both scans give the same
+    planes and the same errors: where the device scan's check fails, the
+    host scanner runs for the stream's canonical error, and the decode
+    never falls back to it silently.
 
     From a CUDA device the image lands in page-locked host memory: the
     answer is a view of a pinned block, which goes back to the allocator
@@ -219,7 +224,9 @@ def decompress_to_device(bytestream: bytes, dtype=None, *, device="cuda",
     """Container bytes -> (3, H, W) uint8 planes as a tensor on ``device``,
     not pulled to the host: for consumers whose next stage runs on the
     device.  ``.cpu().numpy().transpose(1, 2, 0)`` gives
-    :func:`decompress_to_ycbcr`'s image."""
+    :func:`decompress_to_ycbcr`'s image.  ``scan`` is as there: ``"auto"``
+    takes the device scan on a CUDA device, and both scans give the same
+    planes and the same errors."""
     with span("decode", request=True):
         return _resolve_planes(_start_decompress(
             bytestream, resolve_device(device), scan, dtype))
@@ -230,7 +237,9 @@ def decompress_many(blobs, dtype=None, depth: int = 2, *, device="cuda",
     """Pipelined decode of an iterable of containers: image i's check and
     plane pull run on a worker thread while the caller's thread scans and
     launches image i+1.  Results are identical to per-image
-    :func:`decompress_to_ycbcr`."""
+    :func:`decompress_to_ycbcr`, and ``scan`` is as there: ``"auto"`` takes
+    the device scan on a CUDA device; both scans give the same planes and
+    the same errors."""
     if depth < 1:
         raise ValueError(f"depth must be >= 1, got {depth}")
     dev = resolve_device(device)
@@ -336,14 +345,30 @@ def _start_decompress(bytestream: bytes, dev: torch.device, scan: str,
     Returns the (3, H, W) planes on ``dev``, or, on the device-scan path, a
     zero-argument resolver that reads the scan's check when called
     (:func:`_resolve_planes`), so the caller's thread is free to launch the
-    next image first."""
+    next image first.  An ``"auto"`` that takes the device scan counts
+    ``scan.auto_device``."""
     with span("decode.parse"):
         config, data = container.read_data(bytestream)
     streams = [data.y, data.cb, data.cr]
     total = sum(map(len, streams))
-    if DS.scan_mode(total, scan, dev) == "device" and config.num_blocks > 0:
+    if _decode_scan(total, scan, dev) == "device" and config.num_blocks > 0:
+        if scan == "auto":
+            count("scan.auto_device")
         return _foreign_decode(config, streams, dev, dtype)
     return _host_scan_decompress(config, streams, dev, dtype)
+
+
+def _decode_scan(n_bytes: int, scan: str, dev: torch.device) -> str:
+    """A decode's boundary scan, ``"host"`` or ``"device"``.  On a CUDA
+    device ``"auto"`` takes the device scan at every size: a decode keeps
+    its starts on the device for K3, and the device scan won at every size
+    measured, from 9 bytes of stream to 664 KB, with or without the C++
+    scanner (PERF.md §6).  Otherwise the standalone rule of
+    :func:`.entropy.device_scan.scan_mode`, which ``entropy.scan_offsets``
+    keeps: its starts go back to the host."""
+    if scan == "auto" and dev.type == "cuda":
+        return "device"
+    return DS.scan_mode(n_bytes, scan, dev)
 
 
 def _resolve_planes(res) -> torch.Tensor:
@@ -445,7 +470,9 @@ class Jpeg:
     def decompress(bytestream: bytes, dtype=None, *, device="cuda",
                    scan: str = "auto"):
         """Decompress container bytes to a PIL YCbCr image (or an array if
-        PIL is unavailable)."""
+        PIL is unavailable), through :func:`decompress_to_ycbcr`: ``scan``
+        is as there (``"auto"`` takes the device scan on a CUDA device; both
+        scans give the same image and the same errors)."""
         arr = decompress_to_ycbcr(bytestream, device=device, scan=scan,
                                   dtype=dtype)
         try:

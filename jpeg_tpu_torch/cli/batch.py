@@ -187,8 +187,9 @@ def run_distributed(indir: str, outdir: str, args) -> Metrics:
 def run_decompress(indir: str, outdir: str, args) -> Metrics:
     """Batch decode: .jc containers -> .png, resumable and skip-and-report.
 
-    Decode is pipelined (api.decompress_many): blob i+1's host scan and
-    kernel launches overlap blob i's plane download and PNG write.
+    Decode is pipelined (api.decompress_many): blob i+1's boundary scan
+    (on the device on a GPU, else on the host) and kernel launches overlap
+    blob i's plane download and PNG write.
     """
     os.makedirs(outdir, exist_ok=True)
     paths = sorted(os.path.join(indir, f) for f in os.listdir(indir)
