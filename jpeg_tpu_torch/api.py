@@ -203,11 +203,11 @@ def decompress_to_ycbcr(bytestream: bytes, dtype=None, *, device="cuda",
     which also validates the stream) or, with ``scan="device"``, from the
     device scan (kernels K6, K8), whose starts stay on the device.
     ``"auto"`` takes the device scan on a CUDA device, at every size, and
-    the host scan on the CPU (:func:`_decode_scan`).  Bit parsing,
-    dequantize, IDCT and clamp run on ``device``.  Both scans give the same
-    planes and the same errors: where the device scan's check fails, the
-    host scanner runs for the stream's canonical error, and the decode
-    never falls back to it silently.
+    the host scan on the CPU (:func:`.entropy.device_scan.decode_scan`).
+    Bit parsing, dequantize, IDCT and clamp run on ``device``.  Both scans
+    give the same planes and the same errors: where the device scan's check
+    fails, the host scanner runs for the stream's canonical error, and the
+    decode never falls back to it silently.
 
     From a CUDA device the image lands in page-locked host memory: the
     answer is a view of a pinned block, which goes back to the allocator
@@ -215,8 +215,8 @@ def decompress_to_ycbcr(bytestream: bytes, dtype=None, *, device="cuda",
     ``_PINNED_ANSWER_BYTES`` of such blocks; past that, an answer lands in
     pageable memory, as from the CPU (see :func:`_pull`)."""
     with span("decode", request=True):
-        return _pull(_resolve_planes(_start_decompress(
-            bytestream, resolve_device(device), scan, dtype)))
+        return _pull(_start_decompress(
+            bytestream, resolve_device(device), scan, dtype)())
 
 
 def decompress_to_device(bytestream: bytes, dtype=None, *, device="cuda",
@@ -228,8 +228,8 @@ def decompress_to_device(bytestream: bytes, dtype=None, *, device="cuda",
     takes the device scan on a CUDA device, and both scans give the same
     planes and the same errors."""
     with span("decode", request=True):
-        return _resolve_planes(_start_decompress(
-            bytestream, resolve_device(device), scan, dtype))
+        return _start_decompress(
+            bytestream, resolve_device(device), scan, dtype)()
 
 
 def decompress_many(blobs, dtype=None, depth: int = 2, *, device="cuda",
@@ -247,9 +247,9 @@ def decompress_many(blobs, dtype=None, depth: int = 2, *, device="cuda",
     pending: deque = deque()
     out = []
 
-    def pull(res) -> np.ndarray:
+    def pull(resolve) -> np.ndarray:
         with on_caller_stream():   # wait for the kernels launched here
-            return _pull(_resolve_planes(res))
+            return _pull(resolve())
 
     # One worker keeps the pulls in order.
     with span("decode", request=True), \
@@ -342,108 +342,65 @@ def _start_decompress(bytestream: bytes, dev: torch.device, scan: str,
                       dtype=None):
     """Parse the container and launch the decode without waiting for it.
 
-    Returns the (3, H, W) planes on ``dev``, or, on the device-scan path, a
-    zero-argument resolver that reads the scan's check when called
-    (:func:`_resolve_planes`), so the caller's thread is free to launch the
-    next image first.  An ``"auto"`` that takes the device scan counts
-    ``scan.auto_device``."""
+    Returns a zero-argument resolver that gives the (3, H, W) uint8 planes
+    on ``dev``, so the caller's thread is free to launch the next image
+    first.  :func:`.entropy.device_scan.decode_scan` picks the boundary
+    scan; a container with no blocks takes the host scan.
+
+    The host scan runs on three threads and raises a stream's error here.
+    The device scan (K6, then K8) launches K3 and K4 before its check is
+    known (K3 reads zeros past the stream, so garbage starts are safe); the
+    resolver reads the check and, where it fails, raises what
+    :func:`.entropy.device_scan.raise_rejected` raises.  An ``"auto"`` that
+    takes the device scan counts ``scan.auto_device``.  Every block is at
+    least one byte (an EOB padded to a byte), so the device scan rejects a
+    band shorter than ``num_blocks`` bytes before anything is sized from
+    the header's geometry: a forged header cannot make the decode allocate
+    for it."""
     with span("decode.parse"):
         config, data = container.read_data(bytestream)
     streams = [data.y, data.cb, data.cr]
-    total = sum(map(len, streams))
-    if _decode_scan(total, scan, dev) == "device" and config.num_blocks > 0:
+    nb, L = config.num_blocks, config.dct_size ** 2
+    on_device = (DS.decode_scan(sum(map(len, streams)), scan, dev)
+                 == "device" and nb > 0)
+    if on_device:
         if scan == "auto":
             count("scan.auto_device")
-        return _foreign_decode(config, streams, dev, dtype)
-    return _host_scan_decompress(config, streams, dev, dtype)
-
-
-def _decode_scan(n_bytes: int, scan: str, dev: torch.device) -> str:
-    """A decode's boundary scan, ``"host"`` or ``"device"``.  On a CUDA
-    device ``"auto"`` takes the device scan at every size: a decode keeps
-    its starts on the device for K3, and the device scan won at every size
-    measured, from 9 bytes of stream to 664 KB, with or without the C++
-    scanner (PERF.md §6).  Otherwise the standalone rule of
-    :func:`.entropy.device_scan.scan_mode`, which ``entropy.scan_offsets``
-    keeps: its starts go back to the host."""
-    if scan == "auto" and dev.type == "cuda":
-        return "device"
-    return DS.scan_mode(n_bytes, scan, dev)
-
-
-def _resolve_planes(res) -> torch.Tensor:
-    """A :func:`_start_decompress` result as planes: call a device-scan
-    resolver, pass planes through."""
-    return res() if callable(res) else res
-
-
-def _foreign_decode(config: Configuration, streams, dev: torch.device,
-                    dtype):
-    """Host-free decode: the device scan of the three concatenated bands
-    (K6, then K8), K3 at its starts and K4, all launched before the scan's
-    check is known (K3 reads zeros past the stream, so garbage starts are
-    safe).  Returns a resolver that reads the check: planes when it holds,
-    else :func:`_device_scan_rejected`'s error.
-
-    Every block is at least one byte (an EOB padded to a byte), so a band
-    shorter than ``num_blocks`` bytes is rejected before anything is sized
-    from the header's geometry: a forged header cannot make the decode
-    allocate for it."""
-    nb, L = config.num_blocks, config.dct_size ** 2
-    if any(len(s) < nb for s in streams):
-        _device_scan_rejected(config, streams)
-    decoder = BandDecoder(config, dtype, device=dev)
+        if any(len(s) < nb for s in streams):
+            DS.raise_rejected(streams, nb, L)
     with span("decode.upload"):
         stream = DC.upload_stream(b"".join(streams), dev)
-    ends = np.cumsum([len(s) for s in streams])
-    with span("scan.device"):
-        starts, ok = DS.scan_bands_starts(stream, ends, nb, L)
-    planes = decoder(DC.decode_stream(stream, starts, L).reshape(3, nb, L))
+    if on_device:
+        ends = np.cumsum([len(s) for s in streams])
+        with span("scan.device"):
+            starts, ok = DS.scan_bands_starts(stream, ends, nb, L)
+    else:
+        # The C++ scanner releases the GIL: one band a thread, each under
+        # the caller's context so that its span's parent is this call's.
+        with ThreadPoolExecutor(max_workers=3) as pool:
+            scans = [f.result() for f in [
+                pool.submit(carry(entropy.scan_offsets), s, nb, L,
+                            scan="host")
+                for s in streams]]
+        parts, off = [], 0
+        for s, sc in zip(streams, scans):
+            parts.append(sc.astype(np.int64) + off)
+            off += len(s)
+        with span("decode.upload"):
+            starts = torch.from_numpy(np.concatenate(parts)).to(dev)
+        ok = None                                   # nothing to check
+    planes = BandDecoder(config, dtype, device=dev)(
+        DC.decode_stream(stream, starts, L).reshape(3, nb, L))
 
     def resolve() -> torch.Tensor:
-        with span("decode.check"):
-            held = bool(ok)
-        if not held:
-            _device_scan_rejected(config, streams)
+        if ok is not None:
+            with span("decode.check"):
+                held = bool(ok)
+            if not held:
+                DS.raise_rejected(streams, nb, L)
         return planes
 
     return resolve
-
-
-def _device_scan_rejected(config: Configuration, streams):
-    """The device scan's check failed: the host scanner raises the stream's
-    canonical error.  A stream the host scanner accepts means the device
-    scan is wrong, and that raises too: the decode never moves to the host
-    scan behind the caller's back."""
-    nb, L = config.num_blocks, config.dct_size ** 2
-    for s in streams:
-        DS._host_scan(s, nb, L)
-    raise RuntimeError("the device scan rejected a stream the host scanner "
-                       "accepts (please report)")
-
-
-def _host_scan_decompress(config: Configuration, streams,
-                          dev: torch.device, dtype) -> torch.Tensor:
-    """Host boundary scan + device decode; returns (3, H, W) uint8 planes
-    on ``dev``."""
-    nb, L = config.num_blocks, config.dct_size ** 2
-    # Start the stream upload, then scan the three bands on host threads
-    # (the C++ scanner releases the GIL), each under the caller's context
-    # so that its span's parent is this call's.
-    with span("decode.upload"):
-        stream = DC.upload_stream(b"".join(streams), dev)
-    with ThreadPoolExecutor(max_workers=3) as pool:
-        scans = [f.result() for f in [
-            pool.submit(carry(entropy.scan_offsets), s, nb, L, scan="host")
-            for s in streams]]
-    starts, off = [], 0
-    for s, sc in zip(streams, scans):
-        starts.append(sc.astype(np.int64) + off)
-        off += len(s)
-    with span("decode.upload"):
-        starts_t = torch.from_numpy(np.concatenate(starts)).to(dev)
-    levels = DC.decode_stream(stream, starts_t, L)          # (3N, L)
-    return BandDecoder(config, dtype, device=dev)(levels.reshape(3, nb, L))
 
 
 # ---------------------------------------------------------------------------

@@ -15,7 +15,7 @@ so the set of candidate starts is small enough to try them all:
    when the chain's end, one step past the last start, is the band's end
    offset.  When it is, the starts are the host scanner's, walk for walk;
    when it is not, the caller runs the host scanner for its error
-   (:func:`scan_offsets_hybrid`).
+   (:func:`scan_offsets_hybrid`, :func:`raise_rejected`).
 
 Not carried over from the JAX package: the quarter-octave padding of the
 stream (it bounded XLA compile counts; here P is the stream's true length),
@@ -134,6 +134,31 @@ def scan_mode(n_bytes: int = 1 << 30, scan: str = "auto",
     if _get_native() is not None:
         return "host"
     return "device" if n_bytes >= PY_SCAN_DEVICE_MIN_BYTES else "host"
+
+
+def decode_scan(n_bytes: int, scan: str, dev: torch.device) -> str:
+    """A decode's boundary scan, ``"host"`` or ``"device"``.
+
+    It differs from :func:`scan_mode` because a decode keeps K3's starts on
+    the device: on a CUDA device ``"auto"`` takes the device scan at every
+    size, which won at every size measured, from 9 bytes of stream to
+    664 KB, with or without the C++ scanner (PERF.md §6).  Otherwise it is
+    :func:`scan_mode`'s rule, which ``entropy.scan_offsets`` keeps: its
+    starts go back to the host."""
+    if scan == "auto" and dev.type == "cuda":
+        return "device"
+    return scan_mode(n_bytes, scan, dev)
+
+
+def raise_rejected(streams, num_blocks: int, L: int):
+    """The device scan rejected ``streams`` (each band's bytes): the host
+    scanner raises the stream's canonical error.  A stream the host scanner
+    accepts means the device scan is wrong, and that raises too: a decode
+    never moves to the host scan behind the caller's back."""
+    for s in streams:
+        _host_scan(s, num_blocks, L)
+    raise RuntimeError("the device scan rejected a stream the host scanner "
+                       "accepts (please report)")
 
 
 def scan_offsets_device(data: bytes, num_blocks: int, L: int,

@@ -221,8 +221,7 @@ def _epilogue(method, d: int, dtype: torch.dtype) -> dict:
 class _BandModule(nn.Module):
     """What the two band modules share: their buffers come from the cache
     on ``device`` (the CPU by default), counting one ``band.cache_hits``
-    where all were there, else one ``band.builds``; the move of their
-    buffers by ``.to`` is the span ``band.to_device``."""
+    where all were there, else one ``band.builds``."""
 
     def _take(self, wants: dict, device) -> None:
         """Register the buffers ``wants`` names (name -> (key, make))."""
@@ -232,10 +231,6 @@ class _BandModule(nn.Module):
         count("band.builds" if built else "band.cache_hits")
         for name, t in zip(wants, got):
             self.register_buffer(name, t)
-
-    def to(self, *args, **kwargs):
-        with span("band.to_device"):
-            return super().to(*args, **kwargs)
 
 
 class BandEncoder(_BandModule):

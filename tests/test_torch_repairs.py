@@ -63,7 +63,8 @@ def _forged_blob():
 
 @pytest.fixture
 def nothing_sized_from_the_header(monkeypatch):
-    """Fail any step of the host-free decode that sizes from num_blocks."""
+    """Fail any step of the decode's device-scan branch that sizes from
+    num_blocks, and the host branch's scan, where ``api`` calls them."""
     def refuse(name):
         def fn(*a, **k):
             raise AssertionError(f"{name} called for a forged header")
@@ -74,6 +75,7 @@ def nothing_sized_from_the_header(monkeypatch):
     monkeypatch.setattr(api.DS, "scan_bands_starts",
                         refuse("scan_bands_starts"))
     monkeypatch.setattr(DS, "upload_stream", refuse("upload_stream"))
+    monkeypatch.setattr(api.entropy, "scan_offsets", refuse("scan_offsets"))
 
 
 @pytest.mark.parametrize("entry", ["decompress_to_ycbcr",

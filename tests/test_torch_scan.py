@@ -394,9 +394,10 @@ def test_foreign_decode_raises_when_only_the_device_rejects(monkeypatch):
 
 
 def test_foreign_decode_deferred_through_decompress_many():
-    """The host-free path returns a deferred resolver (the check is read at
-    pull time); decompress_many must resolve it in its puller and give
-    images identical to the host-scan path, in order."""
+    """The decode returns a deferred resolver under either scan (the
+    device scan's check is read at pull time); decompress_many must resolve
+    it in its puller and give images identical to the host-scan path, in
+    order."""
     tcfg, jcfg = _cfgs(24, 40, "qtable")
     rng = np.random.default_rng(8)
     imgs = [rng.integers(0, 256, (24, 40, 3), np.uint8) for _ in range(3)]
@@ -404,8 +405,9 @@ def test_foreign_decode_deferred_through_decompress_many():
              for im in imgs]
     res = api._start_decompress(blobs[0], torch.device("cpu"), "device")
     assert callable(res)
-    assert torch.is_tensor(api._start_decompress(
-        blobs[0], torch.device("cpu"), "host"))
+    host = api._start_decompress(blobs[0], torch.device("cpu"), "host")
+    assert callable(host)
+    assert torch.equal(res(), host())
     base = jpeg_tpu_torch.decompress_many(blobs, device="cpu", scan="host")
     got = jpeg_tpu_torch.decompress_many(blobs + blobs[:1], device="cpu",
                                          scan="device")

@@ -1,12 +1,12 @@
-"""A decode's boundary-scan policy (``api._decode_scan``, read by
-``api._start_decompress``).
+"""A decode's boundary-scan policy (``entropy.device_scan.decode_scan``,
+read by ``api._start_decompress``).
 
 * The rule's choices: on a CUDA device ``"auto"`` takes the device scan at
   every size, with or without the C++ scanner; on the CPU the host scan;
   an explicit ``"host"`` or ``"device"`` is honoured.
 * ``entropy.scan_offsets``' ``"auto"``, whose starts go back to the host,
   keeps the host scanner whenever it is built.
-* With the rule's CUDA branch taken on the CPU path (``_decode_scan``
+* With the rule's CUDA branch taken on the CPU path (``decode_scan``
   patched to decide as for a CUDA device; the plain K6 / K8 versions run),
   the answers of ``decompress_to_ycbcr``, ``decompress_many`` and
   ``Jpeg.decompress`` at d 8 and d 24, down to one block of stream, equal
@@ -20,7 +20,7 @@ import pytest
 import torch
 
 import jpeg_tpu_torch as J
-from jpeg_tpu_torch import api, entropy
+from jpeg_tpu_torch import entropy
 from jpeg_tpu_torch.entropy import device_scan as DS
 from jpeg_tpu_torch.entropy import native_codec as NC
 from jpeg_tpu_torch.utils import profiling as P
@@ -74,10 +74,10 @@ CUDA = torch.device("cuda")
 
 
 def _as_on_cuda(monkeypatch):
-    """``_decode_scan`` decides as for a CUDA device, whatever device the
+    """``decode_scan`` decides as for a CUDA device, whatever device the
     decode runs on: the rule's CUDA branch on the CPU path."""
-    rule = api._decode_scan
-    monkeypatch.setattr(api, "_decode_scan",
+    rule = DS.decode_scan
+    monkeypatch.setattr(DS, "decode_scan",
                         lambda n_bytes, scan, dev: rule(n_bytes, scan, CUDA))
 
 
@@ -136,20 +136,20 @@ def test_decode_rule_choices(monkeypatch, n_bytes, scan, device, native,
         _without_native(monkeypatch)
     else:
         assert entropy._get_native() is not None
-    assert api._decode_scan(n_bytes, scan, torch.device(device)) == want
+    assert DS.decode_scan(n_bytes, scan, torch.device(device)) == want
 
 
 def test_decode_rule_is_the_same_without_native(monkeypatch):
     """A decode's rule does not read whether the C++ scanner exists, size
     for size and on either device; a scan it does not know raises."""
-    want = {(n, d, s): api._decode_scan(n, s, torch.device(d))
+    want = {(n, d, s): DS.decode_scan(n, s, torch.device(d))
             for n in SIZES for d in ("cuda", "cpu")
             for s in ("auto", "host", "device")}
     _without_native(monkeypatch)
     for (n, d, s), mode in want.items():
-        assert api._decode_scan(n, s, torch.device(d)) == mode, (n, d, s)
+        assert DS.decode_scan(n, s, torch.device(d)) == mode, (n, d, s)
     with pytest.raises(ValueError, match="scan must be one of"):
-        api._decode_scan(1 << 20, "gpu", CUDA)
+        DS.decode_scan(1 << 20, "gpu", CUDA)
 
 
 # ---------------------------------------------------------------------------
@@ -250,7 +250,7 @@ def test_bad_containers_raise_the_host_scans_error(blobs, entry, spoil,
     want = _error(lambda: _decode(entry, bad, "host"))
     assert want[0] is not RuntimeError
     _as_on_cuda(monkeypatch)
-    assert api._decode_scan(_total(blobs[0]), "auto",
+    assert DS.decode_scan(_total(blobs[0]), "auto",
                             torch.device("cpu")) == "device"
     assert _error(lambda: _decode(entry, bad, "auto")) == want
     assert _error(lambda: _decode(entry, bad, "device")) == want
