@@ -10,8 +10,9 @@ the register-blocked SIMT design it was chosen over
 Builds ``k4_simt.cu`` with ``nvcc`` into ``build/k4_designs/`` and the
 package's kernels as the package does; runs on ``chip_smoke.py``'s
 synthetic 2048x2048 image (seed 7) at the main path (qtable, DCT, d 8,
-bs 2: N = 49,152, K = 64, M = 256) and at BASELINE (3) (divide 1000, d 24,
-bs 4: N = 1,452, K = 576, M = 9,216).  Both designs must equal the exact
+bs 2: N = 49,152, K = M = 64) and at BASELINE (3) (divide 1000, d 24,
+bs 4: N = 1,452, K = M = 576), on the band decoder's d*d operator, each
+pixel stored once (bs 1: the SIMT design has no inflate store).  Both designs must equal the exact
 (f64) sums' rounding except +-1 at provable ties.  Times are CUDA events,
 mean of 50 launches (plain and matmul: 10), in turns (tensor-core, SIMT,
 SIMT, tensor-core).  Prints one line per number and, last, a JSON object

@@ -31,6 +31,7 @@ checkout beside this one.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import subprocess
@@ -164,11 +165,16 @@ def main() -> int:
             with full_f32_matmul():
                 return torch.matmul(a32, op_t)
 
-        shape = f"N={flat.shape[0]}, K={L}, M={bdec.op_t.shape[1]}"
+        # K4 as the tree's band decoder calls it: the (K, d*d) operator and
+        # bs where its wrapper takes one, else the combined operator
+        kw = ({"bs": bs} if "bs" in inspect.signature(
+            K.decode_blocks).parameters and bdec.op_t.shape[1] == L else {})
+        shape = f"N={flat.shape[0]}, K={L}, M={bdec.op_t.shape[1]}, {kw}"
         log(f"K4 {name} ms ({shape})", mean_ms(
-            lambda: K.decode_blocks(flat, bdec.op_t, bdec.deq), 50))
+            lambda: K.decode_blocks(flat, bdec.op_t, bdec.deq, **kw), 50))
         log(f"K4 {name} plain ms", mean_ms(
-            lambda: K.decode_blocks_plain(flat, bdec.op_t, bdec.deq), 10))
+            lambda: K.decode_blocks_plain(flat, bdec.op_t, bdec.deq, **kw),
+            10))
         log(f"K4 {name} matmul ms", mean_ms(matmul, 10))
         log(f"stage K4 + layout {name} ms", fenced_ms(lambda: bdec(levels)))
         if d != 8:

@@ -312,11 +312,12 @@ K6R_EIGHTHS = (2, 4, 8)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 TF32_FLOP_PER_S = 495e12
-# K4's checks at its design's edges: output widths M (bs 1, 4, 5 at d 8,
-# bs 4 at d 24, and bs 3 at d 3, whose K = 9 and M = 81 take the kernel's
-# 4-byte copies and single-byte stores), block counts N, and the |levels|
-# of the near-2**22 and near-2**24 dequantized values (times a divisor of
-# 1024).
+# K4's checks at its design's edges: output widths (d*bs)^2 (bs 1, 4, 5 at
+# d 8, bs 4 at d 24, and bs 3 at d 3, whose K = M = 9 take the kernel's
+# 4-byte copies and pixel-by-pixel stores), block counts N, and the
+# |levels| of the near-2**22 and near-2**24 dequantized values (times a
+# divisor of 1024).  Each edge's pixels are also bit-equal to K4's at bs 1
+# on the combined ((d*bs)^2-column) operator.
 K4_EDGE_M = ((64, 1, 8), (1024, 4, 8), (1600, 5, 8), (9216, 4, 24),
              (81, 3, 3))
 K4_EDGE_N = (1, 63, 65, 49153)
@@ -674,17 +675,30 @@ def max_diff(a, b) -> int:
     return int(d.max()) if d.numel() else 0
 
 
-def k4_against_exact(K, full_f32_matmul, lv, op_t, deq, chunk: int = 2048):
+def k4_against_exact(K, full_f32_matmul, lv, op_t, deq, chunk: int = 2048,
+                     bs: int = 1):
     """K4 (``decode_blocks``) and its plain version on (N, K) levels against
     the exact sums of their f32 inputs (f64 on the card): each must equal
     the exact sums' rounding except by 1 where the exact sum lies within
-    (K + 16) 2**-23 sum|terms| of a .5 tie, and the two likewise each other.
-    Returns max |K4 - plain|, the flips against the plain version and the
-    exact rounding, the tie positions, and the largest error before the
-    rounding of K4's sums (``decode_blocks_sums``) and of the plain
-    version's full-f32 product, in units of 2**-23 sum|terms|."""
-    got = K.decode_blocks(lv, op_t, deq)
-    plain = K.decode_blocks_plain(lv, op_t, deq)
+    (K + 16) 2**-23 sum|terms| of a .5 tie, and the two likewise each other;
+    at ``bs`` > 1 every pixel's bs x bs replicas must equal it.  Returns
+    max |K4 - plain|, the flips against the plain version and the exact
+    rounding, the tie positions, and the largest error before the rounding
+    of K4's sums (``decode_blocks_sums``) and of the plain version's
+    full-f32 product, in units of 2**-23 sum|terms|; and K4's pixels, one
+    a replica set."""
+    got = K.decode_blocks(lv, op_t, deq, bs=bs)
+    plain = K.decode_blocks_plain(lv, op_t, deq, bs=bs)
+    if bs > 1:
+        n, M = lv.shape[0], op_t.shape[1]
+        d = int(round(M ** 0.5))
+        got_d = got.view(n, d, bs, d, bs)[:, :, 0, :, 0].reshape(n, M)
+        if not (torch.equal(got, K.inflate_blocks(got_d, bs)) and torch.equal(
+                plain, K.inflate_blocks(plain.view(n, d, bs, d, bs)[
+                    :, :, 0, :, 0].reshape(n, M), bs))):
+            raise AssertionError(f"K4 at bs {bs}: a pixel's replicas differ")
+        got = got_d
+        plain = plain.view(n, d, bs, d, bs)[:, :, 0, :, 0].reshape(n, M)
     sums = K.decode_blocks_sums(lv, op_t, deq)
     op64 = op_t.double()
     aop = op64.abs()
@@ -1698,8 +1712,8 @@ def main() -> int:
     q_img = torch.arange(P_img, dtype=torch.int64, device=dev)
 
     dec = BandDecoder(cfg).to(dev)
-    pix_k = K.decode_blocks(flat, dec.op_t, dec.deq)
-    pix_p = K.decode_blocks_plain(flat, dec.op_t, dec.deq)
+    pix_k = K.decode_blocks(flat, dec.op_t, dec.deq, bs=dec.bs)
+    pix_p = K.decode_blocks_plain(flat, dec.op_t, dec.deq, bs=dec.bs)
     nv, nh, D = cfg.blocks_high, cfg.blocks_wide, dec.D
 
     def planes(pix):
@@ -1717,30 +1731,35 @@ def main() -> int:
     check(True, f"K4: equal to plain and to the f64 reference except +-1 at "
           f"ties (max |diff| vs plain {k4_err}, "
           f"{int((got != want_p).sum())} tie flips)")
-    M4 = dec.op_t.shape[1]
 
     def k4_entry(lv_t, dec_t, err):
-        """K4's timing closures and counts on (N, K) levels and a decoder,
-        with the full-f32 ``torch.matmul`` of the same operands."""
+        """K4's timing closures and counts on (N, K) levels and a decoder
+        (as ``BandDecoder`` calls it: the (K, M) decode operator, each pixel
+        stored to its bs x bs places), with the full-f32 ``torch.matmul`` of
+        the same operands: the distinct product, M = d*d columns."""
         a32 = (lv_t * dec_t.deq).to(torch.float32)
         n_t, K_t = lv_t.shape
-        M_t = dec_t.op_t.shape[1]
+        M_t, bs_t = dec_t.op_t.shape[1], dec_t.bs
 
         def library():
             with full_f32_matmul():
                 return torch.matmul(a32, dec_t.op_t)
 
         return dict(
-            err=err, fn=lambda: K.decode_blocks(lv_t, dec_t.op_t, dec_t.deq),
-            plain=lambda: K.decode_blocks_plain(lv_t, dec_t.op_t, dec_t.deq),
+            err=err, fn=lambda: K.decode_blocks(lv_t, dec_t.op_t, dec_t.deq,
+                                                bs=bs_t),
+            plain=lambda: K.decode_blocks_plain(lv_t, dec_t.op_t, dec_t.deq,
+                                                bs=bs_t),
             library=library, rate=TF32_FLOP_PER_S,
-            shape=f"N={n_t}, K={K_t}, M={M_t}",
-            nbytes=4 * n_t * K_t + n_t * M_t + 4 * dec_t.op_t.numel()
-            + 4 * dec_t.deq.numel(), flops=2 * n_t * K_t * M_t)
+            shape=f"N={n_t}, K={K_t}, M={M_t}, bs={bs_t}",
+            nbytes=4 * n_t * K_t + n_t * M_t * bs_t * bs_t
+            + 4 * dec_t.op_t.numel() + 4 * dec_t.deq.numel(),
+            flops=2 * n_t * K_t * M_t)
 
     # K4's error before rounding, against the exact sums of its inputs.
     margins = {d_e: [] for _, _, d_e in K4_EDGE_M}
-    k4_x, _ = k4_against_exact(K, full_f32_matmul, flat, dec.op_t, dec.deq)
+    k4_x, _ = k4_against_exact(K, full_f32_matmul, flat, dec.op_t, dec.deq,
+                               bs=dec.bs)
     margins[8].append((k4_x["margin"], k4_x["margin_plain"]))
     check(True, f"K4 on the image's levels vs their exact sums: "
           f"{k4_x['flips_exact']} tie flips ({k4_x['ties']} tie positions)")
@@ -1748,10 +1767,11 @@ def main() -> int:
     dec24 = BandDecoder(cfg24).to(dev)
     flat24 = torch.from_numpy(lv24.reshape(-1, 576)).to(dev)
     k4_24, _ = k4_against_exact(K, full_f32_matmul, flat24, dec24.op_t,
-                                dec24.deq)
+                                dec24.deq, bs=dec24.bs)
     margins[24].append((k4_24["margin"], k4_24["margin_plain"]))
     check(True, f"K4 at d = 24 on BASELINE (3)'s levels (N = "
-          f"{flat24.shape[0]}, K = 576, M = {dec24.op_t.shape[1]}): equal "
+          f"{flat24.shape[0]}, K = 576, M = {dec24.op_t.shape[1]}, bs "
+          f"{dec24.bs}): equal "
           f"to plain and to the exact sums' rounding except +-1 at ties "
           f"({k4_24['flips_plain']} flips vs plain, {k4_24['flips_exact']} "
           f"vs exact, {k4_24['ties']} tie positions)")
@@ -1766,7 +1786,12 @@ def main() -> int:
                           QuantizationMethod("divide", divisor=1000)))
         dec_e = BandDecoder(cfg_e).to(dev)
         L_e = d_e * d_e
-        check(dec_e.op_t.shape[1] == M_e, f"K4 edge decoder: M = {M_e}")
+        check(dec_e.op_t.shape[1] * bs_e * bs_e == M_e,
+              f"K4 edge decoder: M = {dec_e.op_t.shape[1]}, bs {bs_e}, "
+              f"{M_e} pixels a block")
+        comb_e = torch.from_numpy(np.ascontiguousarray(
+            T.combined_decode_operator(d_e, bs_e, "DCT").T,
+            np.float32)).to(dev)
         for N_e in K4_EDGE_N:
             lv_e = np.where(rng_k4.random((N_e, L_e)) < 0.3,
                             rng_k4.integers(-40, 41, (N_e, L_e)), 0)
@@ -1778,7 +1803,12 @@ def main() -> int:
                 lv_e[1, 0], lv_e[2, 0] = 16383, -16383   # all-saturating
             lv_t = torch.from_numpy(lv_e.astype(np.int32)).to(dev)
             r, got = k4_against_exact(K, full_f32_matmul, lv_t, dec_e.op_t,
-                                      dec_e.deq)
+                                      dec_e.deq, bs=bs_e)
+            check(torch.equal(K.decode_blocks(lv_t, dec_e.op_t, dec_e.deq,
+                                              bs=bs_e),
+                              K.decode_blocks(lv_t, comb_e, dec_e.deq)),
+                  f"K4 M = {M_e}, N = {N_e}: bit-equal to K4 on the combined "
+                  "operator")
             margins[d_e].append((r["margin"], r["margin_plain"]))
             k4_err = max(k4_err, r["err"])
             check(not sat or (bool((got[1] == 255).all())
@@ -1791,7 +1821,8 @@ def main() -> int:
         for hi in K4_BIG_LEVELS:
             lv_t = torch.from_numpy(rng_k4.integers(
                 -hi, hi + 1, (257, L_e)).astype(np.int32)).to(dev)
-            r, _ = k4_against_exact(K, full_f32_matmul, lv_t, dec_e.op_t, big)
+            r, _ = k4_against_exact(K, full_f32_matmul, lv_t, dec_e.op_t, big,
+                                    bs=bs_e)
             margins[d_e].append((r["margin"], r["margin_plain"]))
             k4_err = max(k4_err, r["err"])
             check(True, f"K4 M = {M_e}, |lv| <= {hi} times 1024 (up to "
@@ -2146,7 +2177,7 @@ def main() -> int:
              for s, o in zip(streams, off)])).to(dev)
         lv_p = K.decode_stream_blocks_plain(stream, starts, 64)
         bd = BandDecoder(cfg).to(dev)
-        pix = K.decode_blocks_plain(lv_p, bd.op_t, bd.deq)
+        pix = K.decode_blocks_plain(lv_p, bd.op_t, bd.deq, bs=bd.bs)
         plain = crop(deblockify(pix.reshape(3, cfg.blocks_high,
                                             cfg.blocks_wide, bd.D, bd.D)),
                      h, w).cpu().numpy()

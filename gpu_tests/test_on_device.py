@@ -145,6 +145,83 @@ def _check_tie_contract(cfg, band, monkeypatch):
         parity.assert_tie_equal(px_c, pref, dt, "decode cuBLAS vs f64")
 
 
+# K4's inflate store: (d, bs, N) of each case.  N = 2,760 and 24,480 are a
+# padded 4K frame's three bands at d 24 and d 8, bs 4 (the benchmark's
+# cells); no N is a multiple of a tile's 64 or 128 rows.
+K4_INFLATE_CASES = {
+    "d8_bs4": (8, 4, 1001), "d24_bs4": (24, 4, 1001), "d24_bs2": (24, 2, 999),
+    "d8_bs1": (8, 1, 1001), "d24_bs1": (24, 1, 333),
+    "ragged_d8_bs3": (8, 3, 777), "ragged_d5_bs2": (5, 2, 501),
+    "ragged_d3_bs3": (3, 3, 65), "4k_d24_bs4": (24, 4, 2760),
+    "4k_d8_bs4": (8, 4, 24480)}
+
+
+@pytest.mark.parametrize("transform", ["DCT", "DFT"])
+@pytest.mark.parametrize("case", sorted(K4_INFLATE_CASES))
+def test_k4_inflate_store_bit_equal_to_the_combined_operator_on_chip(
+        case, transform):
+    """K4 on the d*d decode operator, writing each pixel to its bs x bs
+    places, against K4 at bs 1 on the ((d*bs)**2, d*d) combined operator,
+    which computes every replica: equal byte for byte (one launch each).
+    Against its plain version (full-f32 cuBLAS, then the inflate): equal
+    except +-1 where the exact sum lies within (K + 16) 2**-23 sum|terms|
+    of a .5 tie.  Levels are random within the cells' ranges (saturating
+    blocks among them), the dequantizer the cells' (qtable at d 8, divide
+    1000 at d 24) or, elsewhere, divide 40."""
+    d, bs, n = K4_INFLATE_CASES[case]
+    L = d * d
+    rng = np.random.default_rng(sum(map(ord, case + transform)))
+    lv = np.where(rng.random((n, L)) < 0.3, rng.integers(-40, 41, (n, L)), 0)
+    lv[:, 0] = rng.integers(-300, 301, n)
+    lv[1, 0], lv[2, 0] = 16383, -16383
+    q = (QuantizationMethod("qtable") if d == 8 and transform == "DCT" else
+         QuantizationMethod("divide", divisor=1000 if d == 24 else 40))
+    deq = torch.from_numpy(Q.dequant_int_vector(q, d).astype(np.int32)).to(
+        DEV)
+    lv = torch.from_numpy(lv.astype(np.int32)).to(DEV)
+    dec = (T.decode_operator if transform == "DCT" else
+           T.dft_decode_operator)(d)
+    op_t = torch.from_numpy(np.ascontiguousarray(dec.T, np.float32)).to(DEV)
+    comb_t = torch.from_numpy(np.ascontiguousarray(
+        T.combined_decode_operator(d, bs, transform).T, np.float32)).to(DEV)
+    new, counts = _launched(lambda: K.decode_blocks(lv, op_t, deq, bs=bs))
+    old, counts_old = _launched(lambda: K.decode_blocks(lv, comb_t, deq))
+    assert counts["decode_blocks"] == counts_old["decode_blocks"] == 1
+    assert new.shape == old.shape == (n, L * bs * bs)
+    assert torch.equal(new, old), int((new != old).sum())
+    plain = K.decode_blocks_plain(lv, op_t, deq, bs=bs)
+    a64 = (lv * deq).to(torch.float32).double()
+    v = a64 @ op_t.double()
+    terms = a64.abs() @ op_t.double().abs()
+    ties = (v - v.floor() - 0.5).abs() <= (L + 16) * parity.EPS32 * terms
+    ties = K.inflate_blocks(ties.to(torch.uint8), bs).bool()
+    parity.assert_tie_equal(new.cpu().numpy(), plain.cpu().numpy(),
+                            ties.cpu().numpy(), f"K4 vs plain {case}")
+
+
+def test_k4_once_and_one_inflate_store_in_a_4k_d24_decode_on_chip():
+    """A 3840x2160 d 24 container (bs 4, divide 1000: the benchmark's d 24
+    configuration) through ``decompress_to_ycbcr()``: one K4 launch and one
+    ``band.inflate_store``, and the planes of the plain-version path."""
+    from jpeg_tpu_torch.utils import profiling
+    cfg = _cfg(height=2160, width=3840, dct_size=24, block_size=4,
+               quantization=QuantizationMethod("divide", divisor=1000))
+    blob = compress_ycbcr(_synth(2160, 3840, seed=37), cfg)
+    decompress_to_ycbcr(blob)
+    profiling.start_recording()
+    try:
+        got, counts = _launched(lambda: decompress_to_ycbcr(blob))
+    finally:
+        profiling.stop_recording()
+    assert counts["decode_blocks"] == 1, counts
+    assert profiling.recorded().counts.get("band.inflate_store") == 1
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(K, "decode_blocks", K.decode_blocks_plain)
+        want = decompress_to_ycbcr(blob)
+    assert got.shape == want.shape == (2160, 3840, 3)
+    assert int(np.abs(got.astype(np.int16) - want).max()) <= 1
+
+
 def _host_entropy_container(img, cfg):
     """The container with every band's levels pulled and coded by the host
     codec (the JAX package's ``JPEG_TPU_HOST_ENTROPY``)."""
@@ -570,20 +647,20 @@ def _two_profiled_decodes(blob_path, out_path):
 
 
 def test_band_cache_keeps_the_d24_operator_on_chip(tmp_path):
-    """At d 24 (bs 4, a padded frame: K4 with the 9,216 x 576 operator,
-    21 MB in f32) the first ``decompress_to_ycbcr`` of a fresh process
-    copies the operator to the card; the second copies nothing of 21 MB or
-    more and gives the same planes.  The profiler runs in a child process,
-    so that the suite's process holds one session only, the tracing case's
-    (in one suite run with these two sessions in its process, that case
-    found no scan kernel in its trace).  Then, the cache cleared, a miss on
+    """At d 24 (bs 4, a padded frame: K4 with the 576 x 576 decode
+    operator, 1.3 MB in f32) the first ``decompress_to_ycbcr`` of a fresh
+    process copies the operator to the card; the second copies nothing of
+    1.3 MB or more and gives the same planes.  The profiler runs in a child
+    process, so that the suite's process holds one session only, the
+    tracing case's (in one suite run with these two sessions in its
+    process, that case found no scan kernel in its trace).  Then, the cache cleared, a miss on
     one CUDA stream and a hit from a second right after it both give the
     serial planes, and no decode writes a cached tensor."""
     cfg = _cfg(height=200, width=300, dct_size=24, block_size=4,
                quantization=QuantizationMethod("divide", divisor=1000))
     blob = compress_ycbcr(_synth(200, 300, seed=17), cfg)
     serial = decompress_to_ycbcr(blob)
-    op_bytes = 576 * 9216 * 4
+    op_bytes = 576 * 576 * 4
     blob_path, out_path = tmp_path / "blob.bin", tmp_path / "copies.json"
     blob_path.write_bytes(blob)
     subprocess.run(
@@ -609,7 +686,7 @@ def test_band_cache_keeps_the_d24_operator_on_chip(tmp_path):
     assert torch.equal(missed, want) and torch.equal(hit, want)
     held = {k: (e.tensor, e.tensor.clone())
             for k, e in band_ops._CACHE._entries.items()}
-    assert any(t.numel() == 576 * 9216 for t, _ in held.values())
+    assert any(t.numel() == 576 * 576 for t, _ in held.values())
     for _ in range(3):
         decompress_to_ycbcr(blob)
         decompress_to_device(blob, scan="device")

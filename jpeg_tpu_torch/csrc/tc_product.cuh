@@ -45,28 +45,35 @@
 // scales its error by the same factor.
 //
 // The tiles.  A thread block of 8 warps takes a Shape: 64 rows x 128
-// columns (2 x 4 warps; K4, and K5 at L > 64) or 128 rows x 64 columns
+// columns (2 x 4 warps; K4, and K5 at L > 64), 128 rows x 64 columns
 // (4 x 2 warps; K5 at L <= 64, where a 128-column tile would be half
-// zero-filled), a 32 x 32 warp tile (2 x 4 m16n8 tiles, 32 accumulators a
-// thread), K in slices of 32 through a 3-stage ring of shared memory
-// filled by cp.async (16-byte copies when K and M are multiples of 4 and
-// the operands are 16-byte aligned, else 4-byte copies; ragged edges
-// zero-filled).  Shared rows are padded (A: 36 words; B: 136 or 72 words)
-// so that every fragment load is free of bank conflicts.  On an H100 this
-// beat, at K4's main-path and d = 24 shapes, splitting each staged slice
-// once into shared {hi, lo} pairs (more shared-memory traffic, and a
-// barrier or a second buffer between the split and the products), slices
-// of 16, a fourth stage and 128 x 128 tiles, and the register-blocked SIMT
-// design (benchmarks/torch_k4_designs.py times that one against it).  The
-// epilogue stages the tile in shared memory and writes rows with 16-byte
-// stores where the output rows are 16-byte aligned, else element by
-// element.  Where the conversion runs is the epilogue's Epi::kStaged:
-// false converts each sum in registers before the staging (K4's round and
-// clamp); true stages the raw f32 sums and converts them as the rows
-// leave, four consecutive columns a thread.  On an H100 the second made
-// K5 (an IEEE multiply and divide a sum) faster and K4's main path slower.
-// The grid is 1-D with the column tiles of a row tile adjacent, so the row
-// tile's A is read from device memory once and from L2 by its neighbours.
+// zero-filled, and K4 at d = 8) or 64 rows x 96 columns (2 x 4 warps of
+// 32 x 24; K4 at d = 24, whose 576 columns it covers in whole 24-column
+// rows of pixels, six tiles and no column wasted); warp tiles of 32 rows
+// (2 m16 tiles) by 32 or 24 columns (4 or 3 n8 tiles; 32 or 24
+// accumulators a thread), K in slices of 32 through a 3-stage ring of
+// shared memory filled by cp.async (16-byte copies when K and M are
+// multiples of 4 and the operands are 16-byte aligned, else 4-byte copies;
+// ragged edges zero-filled).  Shared rows are padded (A: 36 words; B: BN +
+// 8 words) so that every fragment load is free of bank conflicts.  On an
+// H100 this beat, at K4's main-path and d = 24 shapes, splitting each
+// staged slice once into shared {hi, lo} pairs (more shared-memory
+// traffic, and a barrier or a second buffer between the split and the
+// products), slices of 16, a fourth stage and 128 x 128 tiles, and the
+// register-blocked SIMT design (benchmarks/torch_k4_designs.py times that
+// one against it).  The tile a block computes does not change any sum: an
+// output's K order, split and steps are the same in every shape.  The
+// epilogue stages the tile in shared memory, then writes it as rows with
+// 16-byte stores where the output rows are 16-byte aligned, else element by
+// element (or hands it to the caller's store: K4's writes each pixel to
+// its bs x bs places).  Where
+// the conversion runs is the epilogue's Epi::kStaged: false converts each
+// sum in registers before the staging (K4's round and clamp); true stages
+// the raw f32 sums and converts them as the rows leave, four consecutive
+// columns a thread.  On an H100 the second made K5 (an IEEE multiply and
+// divide a sum) faster and K4's main path slower.  The grid is 1-D with
+// the column tiles of a row tile adjacent, so the row tile's A is read from
+// device memory once and from L2 by its neighbours.
 #pragma once
 
 #include <type_traits>
@@ -79,33 +86,36 @@ namespace tc {
 constexpr int kBK = 32;                  // contraction slice per stage
 constexpr int kStages = 3;               // cp.async ring depth
 constexpr int kWM = 32;                  // warp tile rows
-constexpr int kWN = 32;                  // warp tile columns
+constexpr int kWN = 32;                  // warp tile columns (the default)
 constexpr int kMT = kWM / 16;            // m16 tiles a warp
-constexpr int kNT = kWN / 8;             // n8 tiles a warp
-constexpr int kThreads = 256;            // 8 warps, either shape
+constexpr int kThreads = 256;            // 8 warps, every shape
 constexpr int kAStride = kBK + 4;        // words
 constexpr uint32_t kTf32Round = 0x1000u;
 constexpr uint32_t kTf32Mask = 0xffffe000u;
 
-static_assert(kBK % 8 == 0 && kWM % 16 == 0 && kWN % 8 == 0, "mma tiling");
+static_assert(kBK % 8 == 0 && kWM % 16 == 0, "mma tiling");
 static_assert(kAStride % 32 == 4, "conflict-free A fragment loads");
 
-// A thread block's tile: BM rows x BN output columns.
-template <int BM, int BN>
+// A thread block's tile: BM rows x BN output columns, in warp tiles of kWM
+// rows x WN columns.
+template <int BM, int BN, int WN = kWN>
 struct Shape {
   static constexpr int kBM = BM;
   static constexpr int kBN = BN;
+  static constexpr int kWN = WN;
+  static constexpr int kNT = WN / 8;                        // n8 tiles a warp
   static constexpr int kWarpsM = BM / kWM;
-  static constexpr int kWarpsN = BN / kWN;
+  static constexpr int kWarpsN = BN / WN;
   static constexpr int kBStride = BN + 8;                   // words
   static constexpr int kStageWords = BM * kAStride + kBK * kBStride;
   static constexpr int kSmemBytes = kStages * kStageWords * 4;
-  static_assert(BM % kWM == 0 && BN % kWN == 0, "warp tiling");
+  static_assert(BM % kWM == 0 && BN % WN == 0 && WN % 8 == 0, "warp tiling");
   static_assert(32 * kWarpsM * kWarpsN == kThreads, "8 warps");
   static_assert(kBStride % 32 == 8, "conflict-free B fragment loads");
 };
 using Wide = Shape<64, 128>;    // 79,872 bytes of shared memory
 using Tall = Shape<128, 64>;    // 82,944 bytes
+using W96 = Shape<64, 96, 24>;  // 67,584 bytes
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -195,28 +205,54 @@ __device__ __forceinline__ void load_stage(uint32_t* As, float* Bs,
   }
 }
 
+// The tile as the epilogue stages it in shared memory: converted outputs,
+// or the raw sums (Epi::kStaged), kStride elements a row.
+template <class S, class Epi>
+struct Staged {
+  using Out = typename Epi::Out;
+  using T = typename std::conditional<Epi::kStaged, float, Out>::type;
+  static constexpr int kStride = S::kBN + 16 / static_cast<int>(sizeof(T));
+  static_assert(S::kBM * kStride * sizeof(T) <= S::kSmemBytes, "out tile");
+};
+
+// tc_product's output by default: column tiles of S::kBN, each written as
+// rows of the (n, M) output.  Another store gives its own step (the
+// columns a tile owns, at most S::kBN) and writes the staged tile with its
+// own write(os, out, n, M, row0, col0, tid).
+struct RowStore {
+  template <class S>
+  __device__ __forceinline__ int step() const {
+    return S::kBN;
+  }
+};
+
 // One thread block's S::kBM x S::kBN tile of the product.  conv(word, k)
 // -> float converts an A word of column k (it is given 0 for the
 // zero-filled edge); epi(row, col, acc) -> Epi::Out is called for outputs
 // in range, before (Epi::kStaged false) or after (true) the tile is staged
-// in shared memory.  Needs S::kSmemBytes of dynamic shared memory.
-template <class S, bool kVec, class Conv, class Epi>
+// in shared memory; `store` takes the tile's columns and writes it (the
+// RowStore's rows: 16-byte stores where vec_store).  Needs S::kSmemBytes
+// of dynamic shared memory.
+template <class S, bool kVec, class Conv, class Epi, class Store = RowStore>
 __device__ __forceinline__ void tc_product(const uint32_t* __restrict__ a,
                                            const float* __restrict__ b,
                                            int64_t n, int K, int M, Conv conv,
                                            Epi epi,
                                            typename Epi::Out* __restrict__ out,
-                                           bool vec_store) {
+                                           bool vec_store,
+                                           Store store = Store{}) {
   using Out = typename Epi::Out;
   constexpr int kBM = S::kBM, kBN = S::kBN, kBStride = S::kBStride;
+  constexpr int kNT = S::kNT;
   constexpr int kStageWords = S::kStageWords;
   extern __shared__ __align__(16) unsigned char smem[];
   uint32_t* ring = reinterpret_cast<uint32_t*>(smem);
 
-  const int col_tiles = (M + kBN - 1) / kBN;
+  const int step = store.template step<S>();
+  const int col_tiles = (M + step - 1) / step;
   const int64_t tile = blockIdx.x;
   const int64_t row0 = (tile / col_tiles) * kBM;
-  const int col0 = static_cast<int>(tile % col_tiles) * kBN;
+  const int col0 = static_cast<int>(tile % col_tiles) * step;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int wm = warp / S::kWarpsN, wn = warp % S::kWarpsN;
@@ -260,7 +296,7 @@ __device__ __forceinline__ void tc_product(const uint32_t* __restrict__ a,
       uint32_t bh[kNT][2], bl[kNT][2];
 #pragma unroll
       for (int j = 0; j < kNT; ++j) {
-        const float* c = Bs + (ks + t) * kBStride + wn * kWN + j * 8 + g;
+        const float* c = Bs + (ks + t) * kBStride + wn * S::kWN + j * 8 + g;
         const uint2 b0 = split_tf32(c[0]), b1 = split_tf32(c[4 * kBStride]);
         bh[j][0] = b0.x;
         bl[j][0] = b0.y;
@@ -299,12 +335,10 @@ __device__ __forceinline__ void tc_product(const uint32_t* __restrict__ a,
   __syncthreads();
 
   // Epilogue: the tile through shared memory (converted, or the raw sums),
-  // then whole rows.
-  using Staged = typename std::conditional<Epi::kStaged, float, Out>::type;
-  constexpr int kOutStride = kBN + 16 / static_cast<int>(sizeof(Staged));
-  static_assert(kBM * kOutStride * sizeof(Staged) <= S::kSmemBytes,
-                "out tile");
-  Staged* os = reinterpret_cast<Staged*>(smem);
+  // then the store.
+  using Stage = Staged<S, Epi>;
+  constexpr int kOutStride = Stage::kStride;
+  typename Stage::T* os = reinterpret_cast<typename Stage::T*>(smem);
 #pragma unroll
   for (int i = 0; i < kMT; ++i)
 #pragma unroll
@@ -312,7 +346,7 @@ __device__ __forceinline__ void tc_product(const uint32_t* __restrict__ a,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = wm * kWM + i * 16 + g + (e >> 1) * 8;
-        const int c = wn * kWN + j * 8 + 2 * t + (e & 1);
+        const int c = wn * S::kWN + j * 8 + 2 * t + (e & 1);
         if constexpr (Epi::kStaged) {
           os[r * kOutStride + c] = acc[i][j][e];
         } else {
@@ -323,6 +357,10 @@ __device__ __forceinline__ void tc_product(const uint32_t* __restrict__ a,
         }
       }
   __syncthreads();
+  if constexpr (!std::is_same<Store, RowStore>::value) {
+    store.template write<S>(os, out, n, M, row0, col0, tid);
+    return;
+  }
   const int cols = M - col0 < kBN ? M - col0 : kBN;
   if (vec_store) {
     constexpr int kChunk = 16 / static_cast<int>(sizeof(Out));
@@ -386,8 +424,8 @@ inline bool tc_vec_loads(const void* a, const void* b, int K, int M) {
 }
 
 // 16-byte stores are legal: output rows of a multiple of 16 bytes, 16-aligned.
-// (Either shape's column tiles are multiples of 16 bytes, so every chunk
-// of a row starts 16-aligned.)
+// (Every shape's column tiles are multiples of 16 bytes, so every chunk of
+// a row starts 16-aligned.)
 template <class Out>
 inline bool tc_vec_stores(const void* out, int M) {
   return (int64_t(M) * sizeof(Out)) % 16 == 0 &&

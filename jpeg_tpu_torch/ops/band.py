@@ -53,9 +53,11 @@ Pallas kernel, their products are plain ``torch.matmul`` in full f32.
 :class:`BandDecoder` takes ``make_decode``'s:
 
 * ``kernel`` (f32, an integer dequantizer; any geometry, DCT or DFT): K4
-  (``ops/kernels.py:decode_blocks``) applies dequantize, the combined
-  dezigzag + inverse transform + inflate operator, round and clamp in one
-  pass; the blocks are laid out as the plane and cropped.
+  (``ops/kernels.py:decode_blocks``) applies dequantize, the d*d x d*d
+  dezigzag + inverse transform operator (the ``chain`` branch's cache
+  entry), round and clamp in one pass, and writes each pixel to its
+  bs x bs places (counted ``band.inflate_store`` where bs > 1); the
+  blocks are laid out as the plane and cropped.
 * ``combined`` (f32, no integer dequantizer, divisible): the truncating
   (or wrap-guarded f32) dequantize, then the same combined operator as one
   ``torch.matmul``, round and clamp.
@@ -131,8 +133,10 @@ def _tensor(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
     return torch.tensor(np.asarray(a, np.float64)).to(dtype).contiguous()
 
 
-#: Bytes of cached buffers kept a device: a dozen d 24 decode operators
-#: (9,216 x 576 in f32, 21 MB each) beside the small ones.
+#: Bytes of cached buffers kept a device: a dozen of the largest operators,
+#: the ``combined`` branch's at d 24 (9,216 x 576 in f32 at bs 4, 21 MB
+#: each), beside the small ones (the ``kernel`` branch's d 24 operator is
+#: 576 x 576, 1.3 MB).
 _CACHE_BYTES = 256 << 20
 
 
@@ -333,10 +337,10 @@ class BandDecoder(_BandModule):
         self.config = config
         self.d, self.bs, self.D, self.L = d, bs, d * bs, d * d
         wants = {}
-        if self.branch in ("kernel", "combined"):
+        if self.branch == "combined":
             wants["op_t"] = _operator(T.combined_decode_operator, d, bs,
                                       config.transform)
-        elif self.branch == "chain":
+        elif self.branch in ("kernel", "chain"):
             wants["op_t"] = _operator(
                 T.decode_operator if config.transform == "DCT"
                 else T.dft_decode_operator, d)
@@ -355,7 +359,10 @@ class BandDecoder(_BandModule):
         nv, nh = cfg.blocks_high, cfg.blocks_wide
         if self.branch == "kernel":
             flat = levels.reshape(-1, L).to(torch.int32).contiguous()
-            pix = K.decode_blocks(flat, self.op_t, self.deq)   # (B*N, D*D)
+            if self.bs > 1:
+                count("band.inflate_store")
+            pix = K.decode_blocks(flat, self.op_t, self.deq,   # (B*N, D*D)
+                                  bs=self.bs)
             plane = B.deblockify(pix.reshape(nb, nv, nh, D, D))
             return B.crop(plane, cfg.height, cfg.width).contiguous()
         method = cfg.quantization

@@ -37,6 +37,7 @@ import ctypes
 import functools
 import glob
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -77,9 +78,10 @@ _SIGNATURES = {
     "jt_deposit_rows": (_P, _P, _I64, _I32, _P, _I64, _P, _I32, _P),
     # stream bytes, nbytes, starts, n, L, tile, halo, out, device, stream
     "jt_decode_stream": (_P, _I64, _P, _I64, _I32, _I32, _I32, _P, _I32, _P),
-    # levels, deq, op_t, n, K, M, out, device, stream
-    "jt_decode_blocks": (_P, _P, _P, _I64, _I32, _I32, _P, _I32, _P),
-    # the same, out (N, M) f32: K4's sums before its epilogue
+    # levels, deq, op_t, n, K, M, bs, out, device, stream
+    "jt_decode_blocks": (_P, _P, _P, _I64, _I32, _I32, _I32, _P, _I32, _P),
+    # levels, deq, op_t, n, K, M, out (N, M) f32, device, stream: K4's sums
+    # before its epilogue
     "jt_decode_blocks_sums": (_P, _P, _P, _I64, _I32, _I32, _P, _I32, _P),
     # x, op_t, mul, div, mask, n, K, L, out, device, stream
     "jt_encode_blocks": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _P, _I32, _P),
@@ -679,19 +681,51 @@ def decode_stream_blocks(stream: torch.Tensor, starts: torch.Tensor,
 # K4: dequantize + decode operator + round/clamp (csrc/decode_blocks.cu)
 # ---------------------------------------------------------------------------
 
+def _inflate_side(M: int, bs: int) -> int:
+    """The block side d of a (K, M) operator whose pixels K4 writes to
+    their bs x bs places: raises on a ``bs`` below 1, or on an M that is
+    not d * d where bs > 1 (at bs 1 any M is taken, and d is 0)."""
+    if not isinstance(bs, int) or bs < 1:
+        raise ValueError(f"bs must be an int >= 1, got {bs!r}")
+    if bs == 1:
+        return 0
+    d = math.isqrt(M)
+    if d * d != M:
+        raise ValueError(f"bs {bs} needs op_t (K, d*d), got width {M}")
+    return d
+
+
+def inflate_blocks(pix: torch.Tensor, bs: int) -> torch.Tensor:
+    """(N, d*d) pixel blocks -> (N, (d*bs)**2): pixel (i, j) of each block
+    at rows i*bs .. i*bs+bs-1 and columns j*bs .. j*bs+bs-1 of its
+    (d*bs) x (d*bs) block, in row-major order (the nearest-neighbour
+    inflate, as K4 stores it)."""
+    d = _inflate_side(pix.shape[1], bs)
+    if bs == 1:
+        return pix
+    n = pix.shape[0]
+    return (pix.reshape(n, d, 1, d, 1).expand(n, d, bs, d, bs)
+            .reshape(n, d * d * bs * bs))
+
+
 def decode_blocks_plain(levels: torch.Tensor, op_t: torch.Tensor,
-                        deq: torch.Tensor) -> torch.Tensor:
+                        deq: torch.Tensor, bs: int = 1) -> torch.Tensor:
     """Plain version of K4: an f32 ``matmul`` in full f32 (see
-    ``utils/device.py:full_f32_matmul``), round half to even, clamp."""
+    ``utils/device.py:full_f32_matmul``), round half to even, clamp, then
+    :func:`inflate_blocks`."""
+    _inflate_side(op_t.shape[1], bs)
     with full_f32_matmul():
         pix = torch.matmul((levels * deq).to(torch.float32), op_t)
-    return torch.round(pix).clamp(0, 255).to(torch.uint8)
+    return inflate_blocks(torch.round(pix).clamp(0, 255).to(torch.uint8), bs)
 
 
 def decode_blocks(levels: torch.Tensor, op_t: torch.Tensor,
-                  deq: torch.Tensor) -> torch.Tensor:
+                  deq: torch.Tensor, bs: int = 1) -> torch.Tensor:
     """(N, K) int32 levels, (K, M) f32 operator, (K,) int32 dequantizer ->
-    (N, M) uint8 ``clamp(round((levels*deq) @ op_t), 0, 255)``."""
+    (N, M * bs * bs) uint8: ``clamp(round((levels*deq) @ op_t), 0, 255)``,
+    each pixel of a block written to its bs x bs places
+    (:func:`inflate_blocks`; M must be d * d where bs > 1).  The kernel
+    computes each of the M pixels once, whatever bs."""
     _check(levels, "levels", torch.int32, 2)
     _check(op_t, "op_t", torch.float32, 2)
     _check(deq, "deq", torch.int32, 1)
@@ -700,13 +734,15 @@ def decode_blocks(levels: torch.Tensor, op_t: torch.Tensor,
         raise ValueError(f"levels (N, {K}) needs op_t ({K}, M) and deq "
                          f"({K},), got {tuple(op_t.shape)}, "
                          f"{tuple(deq.shape)}")
-    if not _on_cuda(levels, op_t, deq):
-        return decode_blocks_plain(levels, op_t, deq)
     M = op_t.shape[1]
-    out = torch.empty((n, M), dtype=torch.uint8, device=levels.device)
+    _inflate_side(M, bs)
+    if not _on_cuda(levels, op_t, deq):
+        return decode_blocks_plain(levels, op_t, deq, bs)
+    out = torch.empty((n, M * bs * bs), dtype=torch.uint8,
+                      device=levels.device)
     if n and M:
         _launch("jt_decode_blocks", levels.device, levels.data_ptr(),
-                deq.data_ptr(), op_t.data_ptr(), n, K, M, out.data_ptr())
+                deq.data_ptr(), op_t.data_ptr(), n, K, M, bs, out.data_ptr())
         _count(decode_blocks)
     return out
 

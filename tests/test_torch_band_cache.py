@@ -7,7 +7,8 @@
   with the cache cleared, bit for bit.
 * Keys that differ in dtype, device, block size, transform, d or the
   quantizer's parameters never share an entry; frames of two sizes at one
-  setting share theirs.
+  setting share theirs, and the kernel branch shares the chain branch's
+  d*d decode operator at every block size.
 * A share built with ``_image=`` beside a whole image of the share's own
   geometry keeps the whole image's branch, in either order.
 * The byte bound evicts the least recently used entry of the device and
@@ -25,6 +26,7 @@ import torch
 import jpeg_tpu_torch as J
 from jpeg_tpu_torch.config import Configuration, QuantizationMethod
 from jpeg_tpu_torch.ops import band
+from jpeg_tpu_torch.ops import transform as T
 from jpeg_tpu_torch.ops.band import BandDecoder, BandEncoder
 from jpeg_tpu_torch.parallel import sharded
 from jpeg_tpu_torch.utils import profiling as P
@@ -142,8 +144,12 @@ NONE = ("none", {})
 KEY_CASES = {
     "bs_encoder": (BandEncoder, _cfg(64, 128, bs=1), _cfg(64, 128, bs=4),
                    {"fac_t"}, {"zigzag", "mul", "div", "mask"}),
-    "bs_decoder": (BandDecoder, _cfg(48, 96, bs=1), _cfg(48, 96, bs=4),
-                   {"op_t"}, {"deq"}),
+    # The combined branch's operator is a function of bs; the kernel
+    # branch's is not (K4 writes each pixel to its bs x bs places).
+    "bs_decoder": (BandDecoder, _cfg(64, 128, bs=1, quant=FRACTIONAL),
+                   _cfg(64, 128, bs=4, quant=FRACTIONAL), {"op_t"}, set()),
+    "bs_kernel_decoder": (BandDecoder, _cfg(48, 96, bs=1),
+                          _cfg(48, 96, bs=4), set(), {"op_t", "deq"}),
     # Padded at bs 4, the encode's factor is the bs = 1 one.
     "effective_bs": (BandEncoder, _cfg(48, 96, bs=1), _cfg(48, 96, bs=4),
                      set(), {"fac_t", "zigzag", "mul", "div", "mask"}),
@@ -177,6 +183,28 @@ def test_keys_differing_in_one_thing_share_nothing_of_it(what):
         assert a[k] is not b[k], k
     for k in shared:
         assert a[k] is b[k], k
+
+
+@pytest.mark.parametrize("transform", ["DCT", "DFT"])
+def test_kernel_branch_takes_the_chains_decode_operator(transform):
+    """The kernel branch holds the d*d x d*d decode operator, the very
+    entry the chain branch uses, at every block size: K4 inflates as it
+    stores, so no (d*bs)**2-column operator is built for it."""
+    fn = T.decode_operator if transform == "DCT" else T.dft_decode_operator
+    chain = BandDecoder(_cfg(40, 56, bs=2, d=8, transform=transform,
+                             quant=FRACTIONAL))
+    assert chain.branch == "chain"
+    for bs in (1, 2, 4):
+        for h, w in ((64, 128), (40, 56)):
+            kernel = BandDecoder(_cfg(h, w, bs=bs, d=8, transform=transform))
+            assert kernel.branch == "kernel"
+            assert kernel.op_t is chain.op_t
+    assert chain.op_t.shape == (64, 64)
+    np.testing.assert_array_equal(chain.op_t.numpy(),
+                                  fn(8).T.astype(np.float32))
+    assert (fn, 8, F32, torch.device("cpu")) in band._CACHE._entries
+    assert not any(k[0] is T.combined_decode_operator
+                   for k in band._CACHE._entries)
 
 
 def test_dtype_is_part_of_the_key():
@@ -277,10 +305,11 @@ def test_bound_is_per_device(monkeypatch):
 
 
 def test_real_operators_fit_the_bound():
-    """Several d 24 decode operators (9,216 x 576 f32 at bs 4) stay
-    together."""
-    ops = [BandDecoder(_cfg(96, 96, bs=bs, d=24, transform=t, quant=NONE)
-                       ).op_t for t in ("DCT", "DFT") for bs in (4, 2)]
+    """Several d 24 combined decode operators (9,216 x 576 f32 at bs 4, the
+    largest buffers) stay together."""
+    ops = [BandDecoder(_cfg(96, 96, bs=bs, d=24, transform=t,
+                            quant=FRACTIONAL)).op_t
+           for t in ("DCT", "DFT") for bs in (4, 2)]
     assert ops[0].shape == (576, 9216)
     assert len({id(op) for op in ops}) == 4
     held = [e.tensor for e in band._CACHE._entries.values()]

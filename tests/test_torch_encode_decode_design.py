@@ -99,9 +99,9 @@ BK = _const(TC, "kBK")
 STAGES = _const(TC, "kStages")
 THREADS = _const(TC, "kThreads")
 WM, WN = _const(TC, "kWM"), _const(TC, "kWN")
-SHAPES = {name: tuple(int(v) for v in re.search(
-    rf"using {name} = Shape<(\d+), (\d+)>;", TC).groups())
-    for name in ("Wide", "Tall")}
+SHAPES = {name: tuple(int(v or WN) for v in re.search(
+    rf"using {name} = Shape<(\d+), (\d+)(?:, (\d+))?>;", TC).groups())
+    for name in ("Wide", "Tall", "W96")}
 
 
 def tf32(x):
@@ -162,11 +162,11 @@ def test_bound_of_the_split_is_inside_the_contract_up_to_1024():
 
 @pytest.mark.parametrize("name", sorted(SHAPES))
 def test_tile_shape_constants_and_strides(name):
-    BM, BN = SHAPES[name]
+    BM, BN, wn = SHAPES[name]
     a_stride = BK + int(re.search(r"kAStride = kBK \+ (\d+);", TC)[1])
     b_stride = BN + int(re.search(r"kBStride = BN \+ (\d+);", TC)[1])
-    warps_m, warps_n = BM // WM, BN // WN
-    assert BM % WM == 0 and BN % WN == 0
+    warps_m, warps_n = BM // WM, BN // wn
+    assert BM % WM == 0 and BN % wn == 0 and wn % 8 == 0
     assert 32 * warps_m * warps_n == THREADS == 256
     # every fragment load free of bank conflicts: the g (8) x t (4) lanes of
     # an A fragment fall in 32 banks at a stride of 4 mod 32, B's at 8
@@ -177,7 +177,7 @@ def test_tile_shape_constants_and_strides(name):
                  for t in range(4)}
         assert len(banks) == 32, stride
     smem = STAGES * (BM * a_stride + BK * b_stride) * 4
-    assert smem == {"Wide": 79872, "Tall": 82944}[name]
+    assert smem == {"Wide": 79872, "Tall": 82944, "W96": 67584}[name]
     assert 2 * smem <= 228 * 1024 - 2 * 1024      # two blocks an SM
     for out_bytes in (1, 4):                        # uint8 / int32, f32
         assert BM * (BN + 16 // out_bytes) * out_bytes <= smem
@@ -185,16 +185,25 @@ def test_tile_shape_constants_and_strides(name):
 
 
 def test_k5_takes_the_tall_tile_up_to_64_columns_and_k4_the_wide():
-    assert SHAPES == {"Wide": (64, 128), "Tall": (128, 64)}
+    assert SHAPES == {"Wide": (64, 128, 32), "Tall": (128, 64, 32),
+                      "W96": (64, 96, 24)}
     assert "L <= jt::tc::Tall::kBN" in ENC
     assert "tc_product<S, kVec>" in ENC and "__uint_as_float(word)" in ENC
-    assert "using Tile = jt::tc::Wide;" in _source("decode_blocks.cu")
+    assert "W96" not in ENC
+    # K4 takes the tile that computes the fewest columns, the wide one on
+    # a tie (its bs 1 product at the combined operator's 9,216 columns);
+    # tests/test_torch_kernel_design.py models the choice
+    dec = _source("decode_blocks.cu")
+    assert "if (wide <= w96 && wide <= tall)" in dec
+    assert "tc_product<S, kVec>" in dec and "InflateStore{{" in dec
+    assert "jt::tc::RowStore{}" in dec
+    assert "class Store = RowStore" in TC
     # the epilogue divides, never multiplies by a reciprocal
     assert "__fdiv_rn(__fmul_rn(acc, __ldg(mul + c)), __ldg(div + c))" in ENC
     assert not os.path.exists(os.path.join(CSRC, "tiled_product.cuh"))
     # at L = 64 the wide tile would compute 128 columns for 64
     for L, name in ((64, "Tall"), (9, "Tall"), (576, "Wide")):
-        BM, BN = SHAPES[name]
+        BM, BN, _ = SHAPES[name]
         used = L / (-(-L // BN) * BN)
         assert used >= (1.0 if L == 64 else 0.14), (L, used)
 

@@ -18,6 +18,11 @@ their plain versions and an f64 reference.  Here:
   ``BandDecoder``, holds the +-1-at-provable-ties contract against
   jpeg_tpu's f32 decode and the f64 reference in the main path's, bs 4 /
   5, d 24 and DFT configurations.
+* K4's tile plan and store (``csrc/decode_blocks.cu``): the shape that
+  computes the fewest columns (whole d-pixel rows a tile where bs > 1), and
+  a numpy model of both stores (16-byte chunks of pixels replicated by the
+  source's byte-permute selectors, or pixel by pixel) that writes every
+  output byte once and gives ``inflate_blocks`` of the pixels.
 * K2's work assignment (``csrc/compact.cu``): tiles of ``kTileBlocks``
   blocks, tile totals, the warp-wide look-back over published prefixes in
   any order of the tiles, tile-relative offsets, aligned output words
@@ -194,10 +199,11 @@ def model_sums(a32, b32):
     return acc
 
 
-def model_decode_blocks(levels, op_t, deq):
+def model_decode_blocks(levels, op_t, deq, bs=1):
     a32 = (levels.to(torch.int32) * deq).to(torch.float32).numpy()
     acc = model_sums(a32, op_t.numpy())
-    return torch.from_numpy(np.clip(np.rint(acc), 0, 255).astype(np.uint8))
+    pix = torch.from_numpy(np.clip(np.rint(acc), 0, 255).astype(np.uint8))
+    return K.inflate_blocks(pix, bs)
 
 
 @pytest.mark.parametrize("d,bs,tr,deq_value,hi", [
@@ -271,6 +277,149 @@ def test_decode_blocks_sums_on_the_cpu_is_the_full_f32_product():
     before = K.decode_blocks.launches
     K.decode_blocks_sums(lv, op_t, deq)
     assert K.decode_blocks.launches == before
+
+
+# ---------------------------------------------------------------------------
+# K4: the tile plan and the inflate store
+# ---------------------------------------------------------------------------
+
+DEC4 = _source("decode_blocks.cu")
+SHAPES4 = {name: tuple(int(v or 32) for v in re.search(
+    rf"using {name} = Shape<(\d+), (\d+)(?:, (\d+))?>;", TC).groups())
+    for name in ("Wide", "W96", "Tall")}
+# The byte permutes of the 16-byte store: selectors of bs 4 (one word of 4
+# pixels) and bs 2 (two words of 8).
+PERM4 = [int(v, 16) for v in re.findall(r"__byte_perm\(w, 0, (0x[0-9a-f]{4})\)",
+                                        DEC4)]
+PERM2 = [(w, int(v, 16)) for w, v in re.findall(
+    r"__byte_perm\(w\.([xy]), 0, (0x[0-9a-f]{4})\)", DEC4)]
+
+
+def k4_step(name, M, d, bs):
+    """``step_of<S>``: whole d-pixel rows where bs > 1 and a row fits."""
+    BN = SHAPES4[name][1]
+    if bs > 1 and d <= BN:
+        return M if M <= BN else BN // d * d
+    return BN
+
+
+def k4_plan(M, bs):
+    """``launch``: the shape that computes the fewest columns (the wide
+    tile first, then the 96-wide, then the tall one), its step, and whether
+    the store takes 16-byte chunks (whole rows, bs 2 or 4, d * bs a
+    multiple of 16; the output is 16-byte aligned)."""
+    d = math.isqrt(M) if bs > 1 else 0
+    cost = {name: -(-M // k4_step(name, M, d, bs)) * SHAPES4[name][1]
+            for name in ("Wide", "W96", "Tall")}
+    name = min(cost, key=lambda k: (cost[k], list(cost).index(k)))
+    step = k4_step(name, M, d, bs)
+    chunks = (bs > 1 and step % d == 0 and bs in (2, 4)
+              and d * bs % 16 == 0)
+    return name, step, chunks
+
+
+def _perm(words, sel):
+    """``__byte_perm(x, y, sel)`` on little-endian bytes: byte i of the
+    result is byte (sel >> 4 i) & 7 of (x, y)."""
+    return [words[(sel >> (4 * i)) & 7] for i in range(4)]
+
+
+def model_inflate_store(pix, bs):
+    """K4's tiles and store over (N, M) staged pixels, in numpy: each tile
+    stages its rows' columns [col0, col0 + BN) (zeros past M), then writes
+    its part of every block, as 16-byte chunks of permuted pixels or pixel
+    by pixel.  Returns the output and how often each byte was written."""
+    n, M = pix.shape
+    name, step, chunks = k4_plan(M, bs)
+    BM, BN, _ = SHAPES4[name]
+    d = math.isqrt(M)
+    W, blk = d * bs, M * bs * bs
+    out = np.zeros(n * blk, np.uint8)
+    writes = np.zeros(n * blk, np.int64)
+    padded = np.zeros((-(-n // BM) * BM, M + BN), np.uint8)
+    padded[:n, :M] = pix
+    for row0 in range(0, n, BM):
+        for col0 in range(0, M, step):
+            os_ = padded[row0:row0 + BM, col0:col0 + BN]
+            cols = min(step, M - col0)
+            if chunks:
+                row_chunks = W // 16
+                per = cols // d * bs * row_chunks
+                px = 16 // bs
+                c = np.arange(BM * per)
+                r, k = c // per, c % per
+                keep = row0 + r < n
+                r, k = r[keep], k[keep]
+                R = k // row_chunks
+                src = (R // bs) * d + (k - R * row_chunks) * px
+                got = os_[r[:, None], src[:, None] + np.arange(px)]
+                if bs == 4:
+                    chunk = np.concatenate(
+                        [np.stack(_perm(got.T, sel), 1) for sel in PERM4], 1)
+                else:
+                    half = {"x": got[:, :4].T, "y": got[:, 4:].T}
+                    chunk = np.concatenate(
+                        [np.stack(_perm(half[w], sel), 1)
+                         for w, sel in PERM2], 1)
+                at = ((row0 + r) * blk + col0 * bs * bs + k * 16)[:, None] \
+                    + np.arange(16)
+            else:
+                e = np.arange(BM * cols)
+                r, c = e // cols, e % cols
+                keep = row0 + r < n
+                r, c = r[keep], c[keep]
+                j = col0 + c
+                p, q = j // d, j % d
+                base = (row0 + r) * blk + p * bs * W + q * bs
+                at = (base[:, None] + (np.arange(bs)[:, None] * W
+                                       + np.arange(bs)).ravel())
+                chunk = np.repeat(os_[r, c][:, None], bs * bs, 1)
+            out[at.ravel()] = chunk.ravel()
+            np.add.at(writes, at.ravel(), 1)
+    return out.reshape(n, blk), writes
+
+
+def test_k4_plan_covers_the_cells_rows_without_waste():
+    """At d 24 the 96-wide tile takes six tiles of four 24-pixel rows, at
+    d 8 the tall one the whole block, both with 16-byte chunks at bs 2 and
+    4; at bs 1 the product at the combined operator's width keeps the wide
+    tile; the source names the three shapes and the choice."""
+    assert SHAPES4 == {"Wide": (64, 128, 32), "W96": (64, 96, 24),
+                       "Tall": (128, 64, 32)}
+    assert k4_plan(576, 4) == k4_plan(576, 2) == ("W96", 96, True)
+    assert k4_plan(64, 4) == k4_plan(64, 2) == ("Tall", 64, True)
+    assert k4_plan(9216, 1) == ("Wide", 128, False)
+    assert k4_plan(1024, 1) == ("Wide", 128, False)
+    assert k4_plan(576, 1) == ("W96", 96, False)
+    assert k4_plan(64, 1) == ("Tall", 64, False)
+    assert k4_plan(576, 3)[:2] == ("W96", 96) and not k4_plan(576, 3)[2]
+    assert "if (wide <= w96 && wide <= tall)" in DEC4
+    assert "if (w96 <= tall)" in DEC4
+    assert PERM4 == [0x0000, 0x1111, 0x2222, 0x3333]
+    assert PERM2 == [("x", 0x1100), ("x", 0x3322), ("y", 0x1100),
+                     ("y", 0x3322)]
+    # the 96-wide tile's B fragment loads: g (8) x t (4) lanes in 32 banks
+    b_stride = SHAPES4["W96"][1] + 8
+    assert len({(g + t * b_stride) % 32 for g in range(8)
+                for t in range(4)}) == 32
+
+
+@pytest.mark.parametrize("d,bs", [
+    (8, 4), (24, 4), (24, 2), (8, 2), (32, 2), (6, 4), (3, 3), (5, 2),
+    (12, 4), (16, 2), (24, 3), (2, 4), (4, 4), (40, 2), (130, 2)])
+@pytest.mark.parametrize("n", [1, 63, 65, 130])
+def test_k4_store_model_writes_each_byte_once_as_the_inflate(d, bs, n):
+    """Every byte of the (N, (d*bs)**2) output is written exactly once, and
+    the output is :func:`inflate_blocks` of the pixels, whichever store
+    the plan takes (chunks of whole rows, or pixel by pixel where a row is
+    split, bs is 3 or d * bs is not a multiple of 16)."""
+    M = d * d
+    pix = np.random.default_rng(d * 100 + bs + n).integers(
+        0, 256, (n, M), dtype=np.uint8)
+    out, writes = model_inflate_store(pix, bs)
+    assert (writes == 1).all()
+    np.testing.assert_array_equal(
+        out, K.inflate_blocks(torch.from_numpy(pix), bs).numpy())
 
 
 # ---------------------------------------------------------------------------

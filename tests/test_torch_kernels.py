@@ -12,7 +12,8 @@ version).  Tolerances:
 * K4 (an f32 product then round) equals the Pallas ``decode_blocks`` in
   interpret mode except +-1 where ``decode_reference_and_ties`` marks a
   provable .5 tie (``jpeg_tpu/utils/parity.py``; f32 summation orders
-  differ).
+  differ); with ``bs``, on the d*d operator, it equals the Pallas kernel on
+  the combined operator that computes every replica, the same way.
 """
 import glob
 import os
@@ -30,6 +31,7 @@ from jpeg_tpu.utils import parity as jparity
 from jpeg_tpu.config import Configuration as JConfiguration
 from jpeg_tpu.config import QuantizationMethod as JQuantizationMethod
 
+from jpeg_tpu_torch.config import QuantizationMethod
 from jpeg_tpu_torch.entropy import device_codec as DC
 from jpeg_tpu_torch.ops import kernels as K
 from jpeg_tpu_torch.ops import quantize as Q
@@ -197,6 +199,70 @@ def test_k4_equals_pallas_interpret_except_ties():
 
     _, ties = jparity.decode_reference_and_ties(cfg, lv)
     jparity.assert_tie_equal(plane(got.numpy()), plane(want), ties, "K4")
+
+
+@pytest.mark.parametrize("d,bs,tr,qname", [
+    (8, 2, "DCT", "qtable"), (8, 4, "DFT", "qtable"), (3, 3, "DCT", "none"),
+    (24, 2, "DCT", "divide")])
+def test_k4_inflate_equals_pallas_on_the_combined_operator_except_ties(
+        d, bs, tr, qname):
+    """Plain K4 on the d*d decode operator with ``bs`` vs the Pallas
+    ``decode_blocks`` (interpret mode) on the ((d*bs)**2, d*d) combined
+    operator, which computes every replica: equal except +-1 at provable
+    ties, each pixel's replicas equal to one another."""
+    qp = {"divisor": 1000} if qname == "divide" else {}
+    D = d * bs
+    cfg = JConfiguration(width=3 * D, height=2 * D, block_size=bs,
+                         dct_size=d, transform=tr,
+                         quantization=JQuantizationMethod(qname, **qp))
+    L = d * d
+    rng = np.random.default_rng(d * 10 + bs)
+    lv = np.where(rng.random((cfg.num_blocks, L)) < 0.3,
+                  rng.integers(-30, 31, (cfg.num_blocks, L)), 0)
+    lv[:, 0] = rng.integers(-60, 61, cfg.num_blocks)
+    lv = lv.astype(np.int32)
+    dec = JT.decode_operator(d) if tr == "DCT" else JT.dft_decode_operator(d)
+    deq = Q.dequant_int_vector(QuantizationMethod(qname, **qp), d)
+    deq = deq.astype(np.int32)
+    got = K.decode_blocks(torch.from_numpy(lv),
+                          torch.from_numpy(dec.T.astype(np.float32)),
+                          torch.from_numpy(deq), bs=bs).numpy()
+    op = JT.combined_decode_operator(d, bs, tr)        # ((d*bs)^2, L)
+    want = np.asarray(PK.decode_blocks(
+        jnp.asarray(lv), jnp.asarray(op.T, jnp.float32), jnp.asarray(deq),
+        interpret=True))
+    assert got.dtype == np.uint8 and got.shape == want.shape == (
+        cfg.num_blocks, D * D)
+    blocks = got.reshape(-1, d, bs, d, bs)
+    assert (blocks == blocks[:, :, :1, :, :1]).all()
+
+    def plane(pix):
+        return np.asarray(pix).reshape(2, 3, D, D).transpose(0, 2, 1, 3) \
+            .reshape(2 * D, 3 * D)
+
+    _, ties = jparity.decode_reference_and_ties(cfg, lv)
+    jparity.assert_tie_equal(plane(got), plane(want), ties, "K4 inflate")
+
+
+def test_k4_checks_its_block_size():
+    """``bs`` is an int of at least 1, and above 1 the operator's width a
+    square; at bs 1 any width is taken.  The plain version checks the
+    same; neither launches anything on the CPU."""
+    lv = torch.ones((3, 16), dtype=torch.int32)
+    deq = torch.ones(16, dtype=torch.int32)
+    op = torch.full((16, 36), 0.25)
+    before = K.launch_counts()
+    for fn in (K.decode_blocks, K.decode_blocks_plain):
+        for bad in (0, -1, 2.0, None):
+            with pytest.raises(ValueError, match="bs must be an int"):
+                fn(lv, op, deq, bs=bad)
+        with pytest.raises(ValueError, match=r"d\*d"):
+            fn(lv, op[:, :35].contiguous(), deq, bs=2)
+        assert fn(lv, op[:, :35].contiguous(), deq).shape == (3, 35)
+        out = fn(lv, op, deq, bs=3)
+        assert out.shape == (3, 36 * 9) and out.dtype == torch.uint8
+        assert (out == 4).all()
+    assert K.launch_counts() == before
 
 
 def test_k4_rounds_half_to_even_and_clamps():

@@ -7,7 +7,8 @@ spans and counters placed in its decode path.
   thread included; with the band modules' cache cleared, the first
   module counts ``band.builds`` inside one ``band.build`` span and every
   later one ``band.cache_hits``; a pull past the pinned answers' bound
-  counts ``decode.pull_pageable``.
+  counts ``decode.pull_pageable``; a kernel-branch decode at bs > 1 counts
+  ``band.inflate_store``.
 * Off, ``span`` returns one shared object and nothing is recorded; the
   answers are bit-identical on and off.
 * Under a CPU ``torch.profiler`` session every span of the thread the
@@ -88,8 +89,9 @@ def _recorded_call(entry, blob, scan):
 def _expected(entry, scan, pageable=False):
     """The span names one call records, with their numbers, and its
     counters, the band modules' cache cleared before it: the first module
-    builds, the others find its buffers.  ``pageable``: every pull found
-    the pinned answers' bound full and took the pageable path."""
+    builds, the others find its buffers; each decode's K4 (bs 2) inflates
+    as it stores.  ``pageable``: every pull found the pinned answers' bound
+    full and took the pageable path."""
     one = collections.Counter({"decode.parse": 1})
     if scan == "host":
         one.update({"decode.upload": 2, "scan.host": 3})
@@ -101,7 +103,7 @@ def _expected(entry, scan, pageable=False):
     want = collections.Counter({k: v * n for k, v in one.items()})
     want["decode"] = 1
     want["band.build"] = 1
-    counts = {"band.builds": 1}
+    counts = {"band.builds": 1, "band.inflate_store": n}
     if n > 1:
         counts["band.cache_hits"] = n - 1
     if pageable and one["decode.pull"]:
@@ -143,6 +145,29 @@ def test_a_pull_past_the_pinned_bound_is_counted(blob, entry, scan,
     assert collections.Counter(s.name for s in rec.spans) == want
     assert rec.counts == counts
     assert api._PINNED.held == 0
+
+
+@pytest.mark.parametrize("bs,quant,want", [
+    (1, ("qtable", {}), 0), (2, ("qtable", {}), 1), (4, ("none", {}), 1),
+    (3, ("divide", {"divisor": 40}), 1), (2, ("divide", {"divisor": 2.5}), 0)])
+def test_inflate_store_counts_each_kernel_decode_above_bs_1(bs, quant, want):
+    """``band.inflate_store`` counts one a ``decompress_to_ycbcr`` whose
+    band decoder takes the kernel branch at bs > 1 (K4 writes each pixel to
+    its bs x bs places), none at bs 1 or off the kernel branch (a
+    non-integer divisor: the chain branch)."""
+    cfg = J.Configuration(width=8 * bs * 3 + 1, height=8 * bs * 2,
+                          block_size=bs, dct_size=8, transform="DCT",
+                          quantization=J.QuantizationMethod(quant[0],
+                                                            **quant[1]))
+    rng = np.random.default_rng(bs)
+    img = rng.integers(0, 256, (cfg.height, cfg.width, 3), dtype=np.uint8)
+    blob = J.compress_ycbcr(img, cfg, device="cpu")
+    P.start_recording()
+    try:
+        J.decompress_to_ycbcr(blob, device="cpu", scan="host")
+    finally:
+        P.stop_recording()
+    assert P.recorded().counts.get("band.inflate_store", 0) == want
 
 
 @pytest.mark.parametrize("entry", ENTRIES)
