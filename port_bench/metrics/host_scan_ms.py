@@ -1,24 +1,33 @@
-"""host_scan_ms.<split>: host-clock time of the API's calls into
-``jpeg_tpu_torch.entropy.scan_offsets`` (the boundary scan, three bands a
-frame on three threads), summed and divided by the answers returned (in
-ms).  The wrapper is installed in the traced run only."""
+"""host_scan_ms.<split>: host-clock time of the API's calls into the
+boundary scan, whichever it takes, summed and divided by the answers
+returned (in ms): ``jpeg_tpu_torch.entropy.scan_offsets`` (the host scan,
+three bands a frame on three threads) and
+``jpeg_tpu_torch.entropy.device_scan.scan_bands_starts`` (the enqueue of
+the device scan, K6 then K8, which a CUDA decode's ``scan="auto"`` takes).
+The wrappers are installed in the traced run only."""
 
-WRAPS = ("jpeg_tpu_torch.entropy", "scan_offsets")
+WRAPS = (("jpeg_tpu_torch.entropy", "scan_offsets"),
+         ("jpeg_tpu_torch.entropy.device_scan", "scan_bands_starts"))
 SPAN = "host_scan"
 
 
 def install(spans):
-    from jpeg_tpu_torch import entropy
-    orig = entropy.scan_offsets
+    import importlib
+    undos = []
+    for module, name in WRAPS:
+        mod = importlib.import_module(module)
+        orig = getattr(mod, name)
 
-    def timed(*args, **kwargs):
-        with spans.span(SPAN):
-            return orig(*args, **kwargs)
+        def timed(*args, _orig=orig, **kwargs):
+            with spans.span(SPAN):
+                return _orig(*args, **kwargs)
 
-    entropy.scan_offsets = timed
+        setattr(mod, name, timed)
+        undos.append((mod, name, orig))
 
     def undo():
-        entropy.scan_offsets = orig
+        for mod, name, orig in undos:
+            setattr(mod, name, orig)
     return undo
 
 

@@ -18,10 +18,6 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
-#: Frame sizes of the tiny copies of the configurations: padded at both the
-#: block size and the transform size, as the full frames are.
-TINY = {"cli_default_4k": (54, 70), "divide1000_d24_4k": (100, 136)}
-
 
 def pytest_configure(config):
     config.addinivalue_line(
@@ -36,23 +32,28 @@ def _chip_only(request):
                     "cells' sizes")
 
 
-def make_tiny_root(path):
-    """A checkout-like directory with BENCHMARK.json, every cell's mix as
-    it is and its configuration cut to tiny frames, and the metric
-    readers."""
+def make_tiny_root(path, source=ROOT):
+    """A checkout-like directory made from the checkout at ``source``: its
+    BENCHMARK.json, every cell's mix as it is, each configuration cut to
+    the ``tiny_frame`` its own file gives, and the metric readers."""
     bench = os.path.join(path, "port_bench")
-    os.makedirs(os.path.join(bench, "configs"))
-    shutil.copytree(os.path.join(ROOT, "port_bench", "metrics"),
+    shutil.copytree(os.path.join(source, "port_bench", "metrics"),
                     os.path.join(bench, "metrics"))
-    with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
+    with open(os.path.join(source, "BENCHMARK.json")) as f:
         manifest = json.load(f)
     for c in manifest["configs"]:
-        with open(os.path.join(ROOT, c["file"])) as f:
+        with open(os.path.join(source, c["file"])) as f:
             cfg = json.load(f)
-        cfg["frame"]["height"], cfg["frame"]["width"] = TINY[c["name"]]
-        with open(os.path.join(path, c["file"]), "w") as f:
+        if "tiny_frame" not in cfg:
+            raise ValueError(f"{c['file']} has no 'tiny_frame': the frame "
+                             f"size of the configuration's tiny copy")
+        cfg["frame"]["height"] = cfg["tiny_frame"]["height"]
+        cfg["frame"]["width"] = cfg["tiny_frame"]["width"]
+        dst = os.path.join(path, c["file"])
+        os.makedirs(os.path.dirname(dst), exist_ok=True)
+        with open(dst, "w") as f:
             json.dump(cfg, f)
-    shutil.copytree(os.path.join(ROOT, "port_bench", "traffic"),
+    shutil.copytree(os.path.join(source, "port_bench", "traffic"),
                     os.path.join(bench, "traffic"))
     with open(os.path.join(path, "BENCHMARK.json"), "w") as f:
         json.dump(manifest, f)

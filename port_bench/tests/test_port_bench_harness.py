@@ -60,8 +60,12 @@ def test_every_cell_found_by_name(cell):
     assert c.traffic["takes"] in ("frames", "containers")
     assert c.traffic["loop"] == "closed"
     codec = harness.codec_of(c.config)
-    assert (codec.height, codec.width) == (2160, 3840)
-    assert c.config["name"] == c.config_name and c.config["reduced"] == []
+    frame = c.config["frame"]
+    assert (codec.height, codec.width) == (frame["height"], frame["width"])
+    assert 1 <= codec.height <= 65535 and 1 <= codec.width <= 65535
+    cfg = {x["name"]: x for x in m["configs"]}[c.config_name]
+    assert c.config["name"] == c.config_name
+    assert c.config["reduced"] == cfg["reduced"]
     e2e = [x["name"] for x in c.end_to_end]
     assert "setup_s" in e2e and len(e2e) >= 2
     assert c.per_layer
@@ -83,7 +87,8 @@ def test_every_config_file_and_layer_named():
         with open(os.path.join(ROOT, c["file"])) as f:
             assert json.load(f)["reduced"] == c["reduced"]
     layers = {x["layer"] for x in m["per_layer"]}
-    assert layers == {"device", "kernels", "api", "band modules",
+    assert all(isinstance(x, str) and x for x in layers)
+    assert layers >= {"device", "kernels", "api", "band modules",
                       "boundary scan"}
 
 
