@@ -222,6 +222,37 @@ def test_k4_once_and_one_inflate_store_in_a_4k_d24_decode_on_chip():
     assert int(np.abs(got.astype(np.int16) - want).max()) <= 1
 
 
+def test_full_chroma_24mp_decode_to_device_on_chip():
+    """A 6000x4000 bs 1 d 8 qtable container (the benchmark's
+    photo24mp_444 configuration) through ``decompress_to_device(scan=
+    "device")``: every plane within the tie contract of the f64 decode of
+    the container's levels; K8's long form counted once, no inflate store,
+    and ``decode.stream_bytes`` the container's band bytes."""
+    from jpeg_tpu_torch.utils import profiling
+    cfg = _cfg(height=4000, width=6000, block_size=1)
+    blob = compress_ycbcr(_synth(4000, 6000, seed=24), cfg)
+    decompress_to_device(blob, scan="device")
+    profiling.start_recording()
+    try:
+        planes = decompress_to_device(blob, scan="device")
+        torch.cuda.synchronize()
+    finally:
+        profiling.stop_recording()
+    counts = profiling.recorded().counts
+    spans = container.read_band_spans(blob)[1]
+    assert counts.get("scan.chase_long") == 1, counts
+    assert counts.get("band.inflate_store", 0) == 0, counts
+    assert counts.get("decode.stream_bytes") == sum(n for _, n in spans)
+    got = planes.cpu().numpy()
+    assert got.shape == (3, 4000, 6000)
+    _, data = container.read_data(blob)
+    for b, stream in enumerate((data.y, data.cb, data.cr)):
+        lv = entropy.decode_levels(stream, cfg.num_blocks, 64)
+        want, ties = parity.decode_reference_and_ties(cfg, lv)
+        parity.assert_tie_equal(got[b].astype(np.int32), want, ties,
+                                f"band {b} vs f64")
+
+
 def _host_entropy_container(img, cfg):
     """The container with every band's levels pulled and coded by the host
     codec (the JAX package's ``JPEG_TPU_HOST_ENTROPY``)."""

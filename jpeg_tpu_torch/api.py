@@ -36,6 +36,7 @@ from .config import BadRleCodeError, Configuration
 from .container import CompressedData
 from .entropy import device_codec as DC
 from .entropy import device_scan as DS
+from .ops import kernels as K
 from .ops.band import BandDecoder, BandEncoder
 from .utils.device import caller_stream, resolve_device
 from .utils.profiling import carry, count, span
@@ -347,33 +348,49 @@ def _start_decompress(bytestream: bytes, dev: torch.device, scan: str,
     first.  :func:`.entropy.device_scan.decode_scan` picks the boundary
     scan; a container with no blocks takes the host scan.
 
+    The band bytes are not copied on the host.  The parse gives each
+    band's offset and length in ``bytestream``
+    (:func:`.container.read_band_spans`), the scans read the bands in
+    place, and one copy moves the caller's bytes from the first band's
+    first byte to the last band's end, the two u32 length fields between
+    the bands with them, to ``dev`` (``DC.upload_stream``); the counter
+    ``decode.stream_bytes`` adds the bands' bytes.
+
     The host scan runs on three threads and raises a stream's error here.
-    The device scan (K6, then K8) launches K3 and K4 before its check is
-    known (K3 reads zeros past the stream, so garbage starts are safe); the
-    resolver reads the check and, where it fails, raises what
-    :func:`.entropy.device_scan.raise_rejected` raises.  An ``"auto"`` that
-    takes the device scan counts ``scan.auto_device``.  Every block is at
-    least one byte (an EOB padded to a byte), so the device scan rejects a
-    band shorter than ``num_blocks`` bytes before anything is sized from
-    the header's geometry: a forged header cannot make the decode allocate
-    for it."""
+    The device scan (K6, then K8 from each band's first byte) launches K3
+    and K4 before its check is known (K3 reads zeros past the stream, so
+    garbage starts are safe); the resolver reads the check and, where it
+    fails, raises what :func:`.entropy.device_scan.raise_rejected` raises.
+    An ``"auto"`` that takes the device scan counts ``scan.auto_device``;
+    a device scan whose K8 takes its long form (more than
+    ``CHASE_DIRECT_MAX`` blocks a band) counts ``scan.chase_long``.  Every
+    block is at least one byte (an EOB padded to a byte), so the device
+    scan rejects a band shorter than ``num_blocks`` bytes before anything
+    is sized from the header's geometry: a forged header cannot make the
+    decode allocate for it."""
     with span("decode.parse"):
-        config, data = container.read_data(bytestream)
-    streams = [data.y, data.cb, data.cr]
+        config, spans = container.read_band_spans(bytestream)
+        view = memoryview(bytestream)
+        streams = [view[pos:pos + n] for pos, n in spans]
+        base = spans[0][0]
+        firsts = [pos - base for pos, _ in spans]
+        ends = [first + n for first, (_, n) in zip(firsts, spans)]
     nb, L = config.num_blocks, config.dct_size ** 2
-    on_device = (DS.decode_scan(sum(map(len, streams)), scan, dev)
-                 == "device" and nb > 0)
+    n_bytes = sum(n for _, n in spans)
+    on_device = (DS.decode_scan(n_bytes, scan, dev) == "device" and nb > 0)
     if on_device:
         if scan == "auto":
             count("scan.auto_device")
-        if any(len(s) < nb for s in streams):
+        if any(n < nb for _, n in spans):
             DS.raise_rejected(streams, nb, L)
+    count("decode.stream_bytes", n_bytes)
     with span("decode.upload"):
-        stream = DC.upload_stream(b"".join(streams), dev)
+        stream = DC.upload_stream(view[base:base + ends[-1]], dev)
     if on_device:
-        ends = np.cumsum([len(s) for s in streams])
+        if K.chase_plan(stream.shape[0] + 2, len(spans), nb).anchors:
+            count("scan.chase_long")
         with span("scan.device"):
-            starts, ok = DS.scan_bands_starts(stream, ends, nb, L)
+            starts, ok = DS.scan_bands_starts(stream, ends, nb, L, firsts)
     else:
         # The C++ scanner releases the GIL: one band a thread, each under
         # the caller's context so that its span's parent is this call's.
@@ -382,10 +399,8 @@ def _start_decompress(bytestream: bytes, dev: torch.device, scan: str,
                 pool.submit(carry(entropy.scan_offsets), s, nb, L,
                             scan="host")
                 for s in streams]]
-        parts, off = [], 0
-        for s, sc in zip(streams, scans):
-            parts.append(sc.astype(np.int64) + off)
-            off += len(s)
+        parts = [sc.astype(np.int64) + first
+                 for sc, first in zip(scans, firsts)]
         with span("decode.upload"):
             starts = torch.from_numpy(np.concatenate(parts)).to(dev)
         ok = None                                   # nothing to check

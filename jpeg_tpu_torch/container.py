@@ -108,15 +108,26 @@ def generate_data(config: Configuration, data: CompressedData) -> bytes:
             + struct.pack("<L", len(data.cr)) + data.cr)
 
 
-def read_data(bytestream: bytes) -> Tuple[Configuration, CompressedData]:
+def read_band_spans(bytestream: bytes
+                    ) -> Tuple[Configuration, Tuple[Tuple[int, int], ...]]:
+    """:func:`read_data`'s parse without its copies: the configuration and
+    each band's ``(offset, length)`` in ``bytestream``, a length cut where
+    the container ends, as a slice is.  It raises what :func:`read_data`
+    raises."""
     config = get_header(bytestream)
     (header_length,) = struct.unpack_from("<H", bytestream, 0)
     pos = header_length
 
-    bands = []
+    spans = []
     for _ in range(3):
         (blen,) = struct.unpack_from("<L", bytestream, pos)
         pos += 4
-        bands.append(bytes(bytestream[pos:pos + blen]))
+        spans.append((pos, min(blen, len(bytestream) - pos)))
         pos += blen
-    return config, CompressedData(*bands)
+    return config, tuple(spans)
+
+
+def read_data(bytestream: bytes) -> Tuple[Configuration, CompressedData]:
+    config, spans = read_band_spans(bytestream)
+    return config, CompressedData(
+        *(bytes(bytestream[pos:pos + n]) for pos, n in spans))

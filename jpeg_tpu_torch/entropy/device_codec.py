@@ -30,6 +30,8 @@ which sized it) and length sort.
 """
 from __future__ import annotations
 
+import warnings
+
 import torch
 
 from ..ops import kernels as K
@@ -176,12 +178,21 @@ def check_sized_ok(bad) -> None:
             "band's own phase-1 stats (block_bytes_of)")
 
 
-def upload_stream(data: bytes, dev: torch.device) -> torch.Tensor:
-    """Stream bytes -> (len,) uint8 tensor on ``dev``; an empty stream gives
-    an empty tensor, so the scanners, not the upload, report it."""
+def upload_stream(data, dev: torch.device) -> torch.Tensor:
+    """Stream bytes (``bytes``, or a ``memoryview`` of a container's bands)
+    -> (len,) uint8 tensor on ``dev``, moved from the caller's memory in
+    one copy with no host copy before it (on the CPU the tensor is a view
+    of that memory, which nothing writes).  An empty stream gives an empty
+    tensor, so the scanners, not the upload, report it."""
     if not data:
         return torch.empty(0, dtype=torch.uint8, device=dev)
-    return torch.frombuffer(bytearray(data), dtype=torch.uint8).to(dev)
+    with warnings.catch_warnings():
+        # A tensor over a read-only buffer (a caller's bytes) could write
+        # to it, torch warns; this one is only read.
+        warnings.filterwarnings("ignore", "The given buffer is not writable",
+                                UserWarning)
+        host = torch.frombuffer(data, dtype=torch.uint8)
+    return host.to(dev)
 
 
 def decode_stream(stream_u8: torch.Tensor, starts: torch.Tensor,

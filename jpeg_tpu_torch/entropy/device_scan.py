@@ -96,21 +96,24 @@ def scan_table_and_starts(stream: torch.Tensor, n_bytes: int,
     return orbit_starts(end_table(stream, n_bytes, L), n_bytes, num_blocks)
 
 
-def scan_bands_starts(stream: torch.Tensor, ends, num_blocks: int, L: int):
-    """Several bands, concatenated in ``stream``: ONE end table over the
-    buffer (K6), then one chase per band from its first byte (K8).
+def scan_bands_starts(stream: torch.Tensor, ends, num_blocks: int, L: int,
+                      firsts=None):
+    """Several bands in ``stream``, in order: ONE end table over the buffer
+    (K6), then one chase per band from its first byte (K8).
 
-    ``ends`` holds the cumulative band end offsets (band b occupies bytes
-    [ends[b-1], ends[b])); every band has ``num_blocks`` blocks.  Returns
+    Band b occupies bytes [firsts[b], ends[b]); without ``firsts`` the
+    bands are back to back (band b starts at ``ends[b-1]``, the first at
+    0), and with them bytes may lie between two bands (a container's
+    length fields).  Every band has ``num_blocks`` blocks.  Returns
     ``((B * num_blocks,) int64 starts, 0-d bool ok)``, ok only when every
     band's chain ends exactly at its own end offset.  E[q] > q, so a band
-    whose parse runs into the next band's bytes overshoots its end and
-    fails its check."""
+    whose parse runs into the bytes after it overshoots its end and fails
+    its check, and no chain starts between two bands."""
     ends = [int(e) for e in ends]
+    firsts = [0] + ends[:-1] if firsts is None else [int(f) for f in firsts]
     E = end_table(stream, ends[-1], L)
     targets = torch.tensor(ends, dtype=torch.int64, device=stream.device)
-    s0s = torch.tensor([0] + ends[:-1], dtype=torch.int64,
-                       device=stream.device)
+    s0s = torch.tensor(firsts, dtype=torch.int64, device=stream.device)
     starts, oks = K.chase_starts_multi(E, targets, s0s, num_blocks)
     return starts.reshape(-1), oks.all()
 

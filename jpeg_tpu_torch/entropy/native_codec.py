@@ -128,7 +128,7 @@ def scan_offsets(data: bytes, num_blocks: int, L: int) -> np.ndarray:
     The serial O(bytes) part of decode; everything per-coefficient then runs
     block-parallel on the device (``device_codec.decode_stream``)."""
     lib = _require()
-    buf = np.frombuffer(bytes(data), dtype=np.uint8)
+    buf = np.frombuffer(data, dtype=np.uint8)     # no copy of a view
     starts = np.zeros(num_blocks, dtype=np.int32)
     res = lib.jt_scan_offsets(buf.ctypes.data if buf.size else None,
                               buf.size, starts.ctypes.data, num_blocks, L)

@@ -86,12 +86,13 @@ def _recorded_call(entry, blob, scan):
     return out, P.recorded()
 
 
-def _expected(entry, scan, pageable=False):
+def _expected(entry, scan, blob, pageable=False):
     """The span names one call records, with their numbers, and its
     counters, the band modules' cache cleared before it: the first module
     builds, the others find its buffers; each decode's K4 (bs 2) inflates
-    as it stores.  ``pageable``: every pull found the pinned answers' bound
-    full and took the pageable path."""
+    as it stores and moves ``blob``'s band bytes to the device.
+    ``pageable``: every pull found the pinned answers' bound full and took
+    the pageable path."""
     one = collections.Counter({"decode.parse": 1})
     if scan == "host":
         one.update({"decode.upload": 2, "scan.host": 3})
@@ -103,7 +104,9 @@ def _expected(entry, scan, pageable=False):
     want = collections.Counter({k: v * n for k, v in one.items()})
     want["decode"] = 1
     want["band.build"] = 1
-    counts = {"band.builds": 1, "band.inflate_store": n}
+    band_bytes = sum(m for _, m in J.container.read_band_spans(blob)[1])
+    counts = {"band.builds": 1, "band.inflate_store": n,
+              "decode.stream_bytes": n * band_bytes}
     if n > 1:
         counts["band.cache_hits"] = n - 1
     if pageable and one["decode.pull"]:
@@ -115,7 +118,7 @@ def _expected(entry, scan, pageable=False):
 @pytest.mark.parametrize("entry", ENTRIES)
 def test_decode_records_its_span_tree(blob, entry, scan):
     _, rec = _recorded_call(entry, blob, scan)
-    want, counts = _expected(entry, scan)
+    want, counts = _expected(entry, scan, blob)
     assert collections.Counter(s.name for s in rec.spans) == want
     root, = [s for s in rec.spans if s.parent is None]
     assert root.name == "decode" and root.request == root.id
@@ -141,7 +144,7 @@ def test_a_pull_past_the_pinned_bound_is_counted(blob, entry, scan,
         planes.shape, dtype=torch.uint8))
     monkeypatch.setattr(api, "_PINNED_ANSWER_BYTES", 0)
     _, rec = _recorded_call(entry, blob, scan)
-    want, counts = _expected(entry, scan, pageable=True)
+    want, counts = _expected(entry, scan, blob, pageable=True)
     assert collections.Counter(s.name for s in rec.spans) == want
     assert rec.counts == counts
     assert api._PINNED.held == 0
