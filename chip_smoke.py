@@ -13,7 +13,7 @@ result):
    and the torch / CUDA versions.  The device scan's "device scan rejected"
    RuntimeWarning (``device_scan.scan_offsets_hybrid``, which would return
    the host scanner's starts) is an error for the whole run.
-2. Build the ten CUDA kernels from ``jpeg_tpu_torch/csrc`` with ``nvcc``
+2. Build the CUDA kernels (K1-K10) from ``jpeg_tpu_torch/csrc`` with ``nvcc``
    (into ``build/cuda/``) and print the build time and ptxas' resource use.
 3. Hold each kernel against its plain PyTorch version on the card at the
    main path's shapes (2048x2048 image: N = 49,152 blocks, L = 64), on the
@@ -57,7 +57,12 @@ result):
    (``end_table(cap=c)``: K6' twice, c in 1, 4, 12, 1000 and the unit
    budget b and b - 1) bit-equal to the single sweep's, the
    starts must be the host C++ scanner's wherever it accepts every band,
-   and a truncated middle band must fail the check.  Then the redesigned
+   and a truncated middle band must fail the check.  K10 (the segmented
+   scan, ``segment_scan``) runs on the same streams at the wrapper's
+   segment length: its check equals K8's everywhere and its starts are
+   K8's where the check holds, and on the image's and the adversarial
+   stream its starts and status (faults and unsynced walkers) are
+   bit-equal to its plain version's.  Then the redesigned
    kernels at their edges, bit-equal to the plain versions: K7 and K8, in
    the form their plan picks and in both forms, at nb in {0, 1, k - 1, k,
    k + 1, 3k + 5, D, D + 1, D + k + 1} (k = ``CHASE_JUMP``, D =
@@ -109,11 +114,15 @@ result):
    scans, mixed sizes) and ``compress_many`` must equal their per-image
    results, a truncated container must raise the host path's error class,
    ``entropy.scan_offsets(scan="device")`` must give each band's host
-   starts, the device scan must accept both images' streams, each decode
-   must have launched K3 once, and K6, K7 and K8 must have been launched.
-   Last, the default scan: ``decompress_to_ycbcr(blob)`` at 3840x2160,
-   counts reset just before, must take the device scan (K6 and K8
-   launched, K3 once) and give the host-scan planes bit for bit.
+   starts, the device scan (K10, and K6 + K8) must accept both images'
+   streams, each decode must have launched K3 once, and K6, K7, K8 and K10
+   must have been launched: K10 once by each device-scan decode of the two
+   sizes (16,384 and 32,400 blocks a band), K8 once by a 512x512 decode
+   (1,024 blocks a band, K8's short form) whose planes must equal its
+   host-scan planes.  Last, the default scan: ``decompress_to_ycbcr(blob)``
+   at 3840x2160, counts reset just before, must take the device scan (K10
+   launched once, neither K6 nor K8, K3 once) and give the host-scan planes
+   bit for bit.
    Phase 4c drives the BASELINE configurations on the synthetic image, each
    through ``compress_ycbcr`` and ``decompress_to_ycbcr`` with both scans,
    counts reset just before and read just after each: (1) bs 4, DCT,
@@ -191,7 +200,8 @@ result):
    2048x2048; K5, K9 and their plain versions (mean of 50 launches) and
    ``_unit_groups``; encode and decode of BASELINE configurations (2), (3),
    (4a) and (4b); encode with ``enc="tables"`` against ``"lv"``, in turns;
-   K8's device kernels on both main-path streams, and K7 / K8 in both
+   K8's and K10's device kernels on both main-path streams, and K7 / K8
+   in both
    forms at nb = D / 2, D, 2D and 4D on prefixes of the 2048x2048 stream
    (where the plan's choice between them shows); the work K6's walks need
    on the 2048x2048 stream (units walked, and the sum over warps of the
@@ -228,7 +238,8 @@ result):
    operands; their entries also carry ``error_eps32``, and K1's (main
    path and L = 576, its own line), K9's, K3's, K4's, K5's, K6's, the two
    sweeps of K6' in ``end_table(cap=12)`` (``scan_walk_capped`` and
-   ``scan_walk_resume``, each with its own bytes), K7's and K8's one call's
+   ``scan_walk_resume``, each with its own bytes), K7's, K8's and K10's
+   (bound: the stream read once and the starts written once) one call's
    device time (``device_ms``: calls captured in a CUDA graph and
    replayed, since back-to-back wrapper calls include the wrappers' host
    work).  K5's product is also timed without its epilogue
@@ -279,10 +290,13 @@ KERNEL_INFO = {   # wrapper name -> (source, Pallas kernel it replaces)
                      "jpeg_tpu/ops/pallas_kernels.py:944"),
     "chase_starts_multi": ("jpeg_tpu_torch/csrc/chase.cu",
                            "jpeg_tpu/ops/pallas_kernels.py:982"),
+    "segment_scan": ("jpeg_tpu_torch/csrc/segment_scan.cu",
+                     "none: K6 + K8's long form on long bands"),
 }
 MAIN_PATH = ("encode_stream_rows", "deposit_rows", "decode_stream_blocks",
              "decode_blocks")
-HOST_FREE_PATH = ("scan_walk", "chase_starts", "chase_starts_multi")
+HOST_FREE_PATH = ("scan_walk", "chase_starts", "chase_starts_multi",
+                  "segment_scan")
 # K4 at d = 24 (BASELINE (3)) has its own line in the kernels JSON.
 K4_D24 = "decode_blocks[d=24]"
 # K1 on BASELINE (3)'s d = 24 levels (L = 576) has its own line too.
@@ -292,7 +306,7 @@ TABLES_PATH = ("encode_stream_rows_tables", "deposit_rows")
 DEVICE_TIMED = ("encode_stream_rows", "encode_stream_rows_tables", K1_L576,
                 "decode_stream_blocks", "decode_blocks", "encode_blocks",
                 K4_D24, "scan_walk", "scan_walk_capped", "scan_walk_resume",
-                "chase_starts", "chase_starts_multi")
+                "chase_starts", "chase_starts_multi", "segment_scan")
 # K1's and K9's edge checks: levels per block (K9 where L <= 75), and the
 # block counts checked besides the plan's tile T - 1 and T + 1.
 K1_EDGE_L = (9, 16, 64, 576, 1024)
@@ -1329,11 +1343,14 @@ def main() -> int:
         b = K._walk_units(L_c)
         return sorted({*K6R_EDGE_CAPS, b - 1, b})
 
-    def scan_kernels(label, buf, ends, quiet=False, L=L, nb=band_blocks):
+    def scan_kernels(label, buf, ends, quiet=False, L=L, nb=band_blocks,
+                     k10_plain=False):
         """K6-K8 vs their plain versions (bit-equal) on one buffer of three
         bands of nb blocks, the two-sweep end table (K6' twice, at every cap
         of ``two_sweep_caps``) vs the single sweep (bit-equal), and the
-        starts vs the host C++ scanner's.  Returns the device check and the
+        starts vs the host C++ scanner's.  K10 gives K8's check, and K8's
+        starts where it holds; with ``k10_plain`` also its plain version's
+        starts and status, bit for bit.  Returns the device check and the
         timing closures on these inputs."""
         n = buf.shape[0]
         s0s_l = [0] + ends[:-1]
@@ -1346,6 +1363,13 @@ def main() -> int:
         st_k, ok_k = K.chase_starts_multi(E_k, targets, s0s, nb)
         st_p, ok_p = K.chase_starts_multi_plain(E_k, targets, s0s, nb)
         one_k = [K.chase_starts(E_k, t, s0, nb) for t, s0 in zip(ends, s0s_l)]
+        st_10, status_10 = K.segment_scan(buf, s0s_l, ends, nb, L)
+        err_10 = 0
+        if k10_plain:
+            st_10p, status_10p = K.segment_scan_plain(
+                buf, s0s_l, ends, nb, L, K.SEGMENT_BYTES)
+            err_10 = max(max_diff(st_10, st_10p),
+                         max_diff(status_10, status_10p))
         one_p = [K.chase_starts_plain(E_k, t, s0, nb)
                  for t, s0 in zip(ends, s0s_l)]
         errs = {
@@ -1356,17 +1380,23 @@ def main() -> int:
                                       max_diff(ok_k, ok_p)),
             "chase_starts": max(max(max_diff(a, c), max_diff(b, d))
                                 for (a, b), (c, d) in zip(one_k, one_p)),
+            "segment_scan": err_10,
         }
         for k, v in errs.items():
             scan_err[k] = max(scan_err[k], v)
         want = host_starts(buf.cpu().numpy().tobytes(), ends, L, nb)
         ok = bool(ok_k.all())
+        ok_10 = int(status_10[0]) == 0
         what = (f"K6-K8 {label}: end table, starts and checks bit-equal to "
                 f"plain; two-sweep end table (caps {two_sweep_caps(L)}) "
                 f"bit-equal; check {ok} "
                 f"= host C++ scanner's {want is not None}; starts = host "
-                "starts")
+                f"starts; K10's check {ok_10} = K8's, its starts K8's where "
+                "it holds" + (", starts and status bit-equal to its plain "
+                              "version's" if k10_plain else ""))
         good = (not any(errs.values()) and ok == (want is not None)
+                and ok_10 == ok
+                and (not ok or torch.equal(st_10, st_k.reshape(-1)))
                 and [bool(o) for _, o in one_k] == ok_k.tolist()
                 and (want is None or np.array_equal(st_k.reshape(-1).cpu()
                                                     .numpy(), want)))
@@ -1393,12 +1423,21 @@ def main() -> int:
                 plain=lambda: K.chase_starts_multi_plain(E_k, targets, s0s,
                                                          nb),
                 nbytes=len(ends) * (12 * nb + 1)),
+            # K10 reads each stream byte and writes each start once.
+            "segment_scan": dict(
+                err=errs["segment_scan"],
+                fn=lambda: K.segment_scan(buf, s0s_l, ends, nb, L),
+                plain=lambda: K.segment_scan_plain(buf, s0s_l, ends, nb, L,
+                                                   K.SEGMENT_BYTES),
+                plain_reps=1, nbytes=n + 8 * len(ends) * nb),
         }
 
     img_ends = band_ends(img_bb)
-    ok, scan_results = scan_kernels("image stream", img_buf, img_ends)
+    ok, scan_results = scan_kernels("image stream", img_buf, img_ends,
+                                    k10_plain=True)
     check(ok, f"K6+K8 accept the image's {img_ends[-1]}-byte stream")
-    ok, _ = scan_kernels("adversarial stream", adv_buf, band_ends(adv_bb))
+    ok, _ = scan_kernels("adversarial stream", adv_buf, band_ends(adv_bb),
+                         k10_plain=True)
     check(ok, "K6+K8 accept the adversarial stream")
     rng = np.random.default_rng(3)
     accepted = 0
@@ -1425,7 +1464,9 @@ def main() -> int:
     t_buf = torch.frombuffer(bytearray(trunc), dtype=torch.uint8).to(dev)
     ok, _ = scan_kernels("truncated middle band", t_buf, t_ends)
     _, ok_api = DS.scan_bands_starts(t_buf, t_ends, band_blocks, L)
-    check(not ok and not bool(ok_api), "truncated middle band: check fails")
+    _, status_api = DS.scan_bands_segmented(t_buf, t_ends, band_blocks, L)
+    check(not ok and not bool(ok_api) and not DS.check_held(status_api),
+          "truncated middle band: check fails (K6 + K8 and K10)")
     results.update(scan_results)
 
     # The redesigned kernels at their edges: K7 / K8's two forms, the long
@@ -2210,7 +2251,18 @@ def main() -> int:
     log("== phase 4b: host-free decode (scan='device') and the rest of "
         "the API")
     sizes = list(runs)
+    # 512x512 at bs 2: 1,024 blocks a band, the longest band that keeps
+    # K6 + K8 (K8's short form); the main sizes' bands take K10.
+    short_hw = (512, 512)
+    short_blob = compress_ycbcr(synth_image(*short_hw), cfg_for(*short_hw))
+    short_host = decompress_to_ycbcr(short_blob, scan="host")
+    check(cfg_for(*short_hw).num_blocks == K.CHASE_DIRECT_MAX
+          and not DS.segmented(K.CHASE_DIRECT_MAX)
+          and all(DS.segmented(cfg_for(*hw).num_blocks) for hw in sizes),
+          f"{short_hw[0]}x{short_hw[1]} bands keep K6 + K8, the main sizes' "
+          "take K10")
     K.reset_launch_counts()
+    short_dev = decompress_to_ycbcr(short_blob, scan="device")
     dev_recs = {hw: decompress_to_ycbcr(blob, scan="device")
                 for hw, (blob, _) in runs.items()}
     dev_planes = {hw: decompress_to_device(blob, scan="device")
@@ -2235,22 +2287,39 @@ def main() -> int:
             errors[scan] = type(e)
     counts_hf = K.launch_counts()
     log(f"  launch counts over the host-free run: {counts_hf}")
-    # One K3 launch per decode: two per size, one per decompress_many image
-    # and scan, and the truncated container's device-scan decode, which
-    # launches before its check is read.  A decode moved to the host scan
-    # would launch K3 a second time.
-    decodes = 2 * len(sizes) + 2 * len(mixed) + 1
+    # One K3 launch per decode: the short-band one, two per size, one per
+    # decompress_many image and scan, and the truncated container's
+    # device-scan decode, which launches before its check is read.  A
+    # decode moved to the host scan would launch K3 a second time.
+    decodes = 1 + 2 * len(sizes) + 2 * len(mixed) + 1
     check(counts_hf["decode_stream_blocks"] == decodes,
           f"the host-free run decoded {decodes} times, each once "
           f"(K3 launches: {counts_hf['decode_stream_blocks']})")
+    # Device-scan decodes of the main sizes: two per size, the mixed
+    # decompress_many and the truncated container.
+    long_decodes = 2 * len(sizes) + len(mixed) + 1
+    check(counts_hf["segment_scan"] == long_decodes
+          and counts_hf["chase_starts_multi"] == 1,
+          f"K10 scanned each of the {long_decodes} device-scan decodes of "
+          f"the main sizes ({counts_hf['segment_scan']}) and K8 the "
+          f"{short_hw[0]}x{short_hw[1]} one alone "
+          f"({counts_hf['chase_starts_multi']})")
+    check(np.array_equal(short_dev, short_host),
+          f"{short_hw[0]}x{short_hw[1]}: scan='device' planes (K6 + K8) "
+          "bit-equal to the host-scan path's")
     for (h, w), (blob, rec) in runs.items():
         cfg, data = container.read_data(blob)
         streams = (data.y, data.cb, data.cr)
         buf = torch.frombuffer(bytearray(b"".join(streams)),
                                dtype=torch.uint8).to(dev)
         ends = np.cumsum([len(s) for s in streams])
-        _, ok_hf = DS.scan_bands_starts(buf, ends, cfg.num_blocks, L)
-        check(bool(ok_hf), f"{h}x{w}: the device scan accepts the stream")
+        st_hf, ok_hf = DS.scan_bands_starts(buf, ends, cfg.num_blocks, L)
+        st_10, status_hf = DS.scan_bands_segmented(buf, ends, cfg.num_blocks,
+                                                   L)
+        check(bool(ok_hf) and DS.check_held(status_hf)
+              and torch.equal(st_10, st_hf),
+              f"{h}x{w}: the device scan accepts the stream, K10 with K8's "
+              f"starts (status {status_hf.tolist()})")
     for (h, w), (blob, rec) in runs.items():
         check(np.array_equal(dev_recs[(h, w)], rec),
               f"{h}x{w}: scan='device' planes bit-equal to the host-scan "
@@ -2282,16 +2351,17 @@ def main() -> int:
           f"a truncated container raises {errors['host'].__name__} with "
           "either scan")
     check(all(counts_hf[name] > 0 for name in HOST_FREE_PATH),
-          "K6, K7 and K8 were launched by the host-free run")
+          "K6, K7, K8 and K10 were launched by the host-free run")
     hw = (2160, 3840)
     K.reset_launch_counts()
     auto_rec = decompress_to_ycbcr(runs[hw][0])
     counts_auto = K.launch_counts()
-    check(counts_auto["scan_walk"] > 0
-          and counts_auto["chase_starts_multi"] > 0
+    check(counts_auto["segment_scan"] == 1
+          and counts_auto["scan_walk"] == 0
+          and counts_auto["chase_starts_multi"] == 0
           and counts_auto["decode_stream_blocks"] == 1,
-          f"{hw[0]}x{hw[1]}: the default scan took the device scan (K6 and "
-          f"K8 launched, K3 once: {counts_auto})")
+          f"{hw[0]}x{hw[1]}: the default scan took the device scan (K10 "
+          f"once, neither K6 nor K8, K3 once: {counts_auto})")
     check(np.array_equal(auto_rec, runs[hw][1]),
           f"{hw[0]}x{hw[1]}: the default scan's planes bit-equal to "
           "scan='host''s")
@@ -2559,12 +2629,19 @@ def main() -> int:
         ends = np.cumsum([len(x) for x in streams]).tolist()
         stream = stage("upload stream", lambda: DC.upload_stream(
             b"".join(streams), dev))
-        E = stage("K6 end table", lambda: DS.end_table(stream, ends[-1], Lc))
-        tg = torch.tensor(ends, dtype=torch.int64, device=dev)
-        s0 = torch.tensor([0] + ends[:-1], dtype=torch.int64, device=dev)
-        starts, oks = stage("K8 chase", lambda: K.chase_starts_multi(
-            E, tg, s0, nbh))
-        stage("check pull", lambda: bool(oks.all()))
+        if DS.segmented(nbh):
+            starts, status = stage(
+                "K10 segmented scan", lambda: K.segment_scan(
+                    stream, [0] + ends[:-1], ends, nbh, Lc))
+            stage("check pull", lambda: DS.check_held(status))
+        else:
+            E = stage("K6 end table",
+                      lambda: DS.end_table(stream, ends[-1], Lc))
+            tg = torch.tensor(ends, dtype=torch.int64, device=dev)
+            s0 = torch.tensor([0] + ends[:-1], dtype=torch.int64, device=dev)
+            starts, oks = stage("K8 chase", lambda: K.chase_starts_multi(
+                E, tg, s0, nbh))
+            stage("check pull", lambda: bool(oks.all()))
         levels = stage("K3 levels", lambda: DC.decode_stream(
             stream, starts.reshape(-1), Lc))
         bdec = stage("BandDecoder build", lambda: BandDecoder(cfg).to(dev))
@@ -2642,6 +2719,9 @@ def main() -> int:
             + device_kernels(lambda: K.chase_starts_multi(E_h, tg, s0,
                                                           nbh))[2]
             + f"  [{card}]")
+        log(f"  K10 {h}x{w}, nb = {nbh}, {K.SEGMENT_BYTES}-byte segments: "
+            + device_kernels(lambda: K.segment_scan(
+                s, [0] + ends_h[:-1], ends_h, nbh, L))[2] + f"  [{card}]")
     # The selection: three-band prefixes of the 2048x2048 stream, nb blocks
     # a band, both forms (uncounted launches).
     cfg, data = container.read_data(runs[SIZES[0]][0])

@@ -215,6 +215,9 @@ def test_k4_once_and_one_inflate_store_in_a_4k_d24_decode_on_chip():
         profiling.stop_recording()
     assert counts["decode_blocks"] == 1, counts
     assert profiling.recorded().counts.get("band.inflate_store") == 1
+    # 920 blocks a band: K6 + K8's short form, not the segmented scan
+    assert profiling.recorded().counts.get("scan.segmented", 0) == 0
+    assert counts["segment_scan"] == 0 and counts["scan_walk"] == 1
     with pytest.MonkeyPatch.context() as m:
         m.setattr(K, "decode_blocks", K.decode_blocks_plain)
         want = decompress_to_ycbcr(blob)
@@ -226,21 +229,29 @@ def test_full_chroma_24mp_decode_to_device_on_chip():
     """A 6000x4000 bs 1 d 8 qtable container (the benchmark's
     photo24mp_444 configuration) through ``decompress_to_device(scan=
     "device")``: every plane within the tie contract of the f64 decode of
-    the container's levels; K8's long form counted once, no inflate store,
-    and ``decode.stream_bytes`` the container's band bytes."""
+    the container's levels; the segmented scan (K10) counted once, with
+    its segments and at most one in a thousand unsynced, neither K6 nor
+    K8 launched (K8's long form no longer runs in a decode), no inflate
+    store, and ``decode.stream_bytes`` the container's band bytes."""
     from jpeg_tpu_torch.utils import profiling
     cfg = _cfg(height=4000, width=6000, block_size=1)
     blob = compress_ycbcr(_synth(4000, 6000, seed=24), cfg)
     decompress_to_device(blob, scan="device")
     profiling.start_recording()
     try:
-        planes = decompress_to_device(blob, scan="device")
-        torch.cuda.synchronize()
+        planes, launches = _launched(
+            lambda: decompress_to_device(blob, scan="device"))
     finally:
         profiling.stop_recording()
     counts = profiling.recorded().counts
     spans = container.read_band_spans(blob)[1]
-    assert counts.get("scan.chase_long") == 1, counts
+    assert counts.get("scan.segmented") == 1, counts
+    assert launches["segment_scan"] == 1, launches
+    assert launches["scan_walk"] == 0 and launches["chase_starts_multi"] == 0
+    segments = sum(K.segment_counts([0] * 3, [n for _, n in spans],
+                                    K.SEGMENT_BYTES))
+    assert counts.get("scan.segments") == segments, counts
+    assert 0 <= counts["scan.segments_unsynced"] <= segments // 1000
     assert counts.get("band.inflate_store", 0) == 0, counts
     assert counts.get("decode.stream_bytes") == sum(n for _, n in spans)
     got = planes.cpu().numpy()
@@ -251,6 +262,92 @@ def test_full_chroma_24mp_decode_to_device_on_chip():
         want, ties = parity.decode_reference_and_ties(cfg, lv)
         parity.assert_tie_equal(got[b].astype(np.int32), want, ties,
                                 f"band {b} vs f64")
+
+
+def _photo_bands(h, w, seed):
+    """A bs 1 d 8 qtable container's bands as a decode moves them: (bytes
+    from the first band's first byte to the last band's end, firsts, ends,
+    blocks a band)."""
+    cfg = _cfg(height=h, width=w, block_size=1)
+    blob = compress_ycbcr(_synth(h, w, seed=seed), cfg)
+    spans = container.read_band_spans(blob)[1]
+    base = spans[0][0]
+    firsts = [pos - base for pos, _ in spans]
+    ends = [first + n for first, (_, n) in zip(firsts, spans)]
+    return bytes(blob[base:base + ends[-1]]), firsts, ends, cfg.num_blocks
+
+
+def _malformed(raw, firsts, ends, count, seed):
+    """``count`` malformed copies of the bands, (bytes, ends): bits
+    flipped, 32 bytes overwritten, a band 1-4 bytes short, a band run 2
+    bytes into the next length field, a band's first byte garbled."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(count):
+        r, e = bytearray(raw), list(ends)
+        b = int(rng.integers(len(firsts)))
+        kind = i % 5
+        if kind == 0:
+            for _ in range(int(rng.integers(1, 4))):
+                r[int(rng.integers(firsts[b], ends[b]))] ^= \
+                    1 << int(rng.integers(8))
+        elif kind == 1:
+            j = int(rng.integers(firsts[b], ends[b] - 32))
+            r[j:j + 32] = bytes(rng.integers(0, 256, 32).tolist())
+        elif kind == 2:
+            e[b] -= int(rng.integers(1, 5))
+        elif kind == 3:
+            e[b] += 2 if b + 1 < len(firsts) else -1
+        else:
+            r[firsts[b]] ^= 0x5A
+        out.append((bytes(r), e))
+    return out
+
+
+def _on_chip(raw):
+    return torch.frombuffer(bytearray(raw), dtype=torch.uint8).to(DEV)
+
+
+def test_segmented_scan_bit_equal_to_k6_k8_on_chip():
+    """The segmented scan (K10) against K6 + K8 on a 6000x4000 bs 1
+    photo's three bands (375,000 blocks each) and 20 malformed copies of
+    them: the same check everywhere and the same starts where it holds, at
+    the wrapper's segment length through ``scan_bands_segmented`` (one K10
+    launch, no K6 or K8) and at 256 bytes."""
+    raw, firsts, ends, nb = _photo_bands(4000, 6000, seed=25)
+    assert nb == 375_000
+    cases = [(raw, ends)] + _malformed(raw, firsts, ends, 20, seed=2500)
+    held = 0
+    for i, (r, e) in enumerate(cases):
+        stream = _on_chip(r)
+        want, ok = DS.scan_bands_starts(stream, e, nb, 64, firsts)
+        ok = bool(ok)
+        held += ok
+        (got, status), counts = _launched(
+            lambda: DS.scan_bands_segmented(stream, e, nb, 64, firsts))
+        assert counts["segment_scan"] == 1 and counts["scan_walk"] == 0
+        assert counts["chase_starts_multi"] == 0
+        assert (int(status[0]) == 0) == ok, (i, status.tolist())
+        assert not ok or torch.equal(got, want), i
+        got, status = K.segment_scan(stream, firsts, e, nb, 64, 256)
+        assert (int(status[0]) == 0) == ok, (i, status.tolist())
+        assert not ok or torch.equal(got, want), i
+    assert held >= 1
+
+
+@pytest.mark.parametrize("seg", [32, 64, 1024])
+def test_segmented_scan_equals_its_plain_version_on_chip(seg):
+    """K10 against its plain version on a 240x320 bs 1 photo's bands and
+    five malformed copies: the starts and the status (rejected bands,
+    unsynced walkers) bit for bit, at segment lengths under a block and
+    over the longest band."""
+    raw, firsts, ends, nb = _photo_bands(240, 320, seed=seg)
+    for r, e in [(raw, ends)] + _malformed(raw, firsts, ends, 5, seed=seg):
+        stream = _on_chip(r)
+        got = K.segment_scan(stream, firsts, e, nb, 64, seg)
+        want = K.segment_scan_plain(stream.cpu(), firsts, e, nb, 64, seg)
+        assert torch.equal(got[1].cpu(), want[1]), (got[1], want[1])
+        assert torch.equal(got[0].cpu(), want[0])
 
 
 def _host_entropy_container(img, cfg):

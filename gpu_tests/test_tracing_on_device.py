@@ -6,8 +6,10 @@ ranges on the profiler's timeline (``jpeg_tpu_torch/utils/profiling.py``).
 Launches and kernels are joined by their correlation ids in the session's
 Chrome trace:
 
-* the launches of the device scan's kernels (K6 ``scan_walk_kernel``, K8
-  ``jump_table_kernel`` / ``chain_kernel``) fall inside ``scan.device``;
+* the launches of the device scan's kernels (K10's ``segment_*_kernel``
+  at 8,160 blocks a band; K6 ``scan_walk_kernel`` and K8
+  ``jump_table_kernel`` / ``chain_kernel`` where a band is shorter) fall
+  inside ``scan.device``;
 * the launches of K3 (``decode_stream_kernel``) and K4
   (``decode_blocks_kernel``) fall inside the call's root span ``decode``
   and outside ``scan.device``;
@@ -27,7 +29,9 @@ from jpeg_tpu_torch import (Configuration, QuantizationMethod,
                             compress_ycbcr, decompress_to_device)
 from jpeg_tpu_torch.utils import profiling
 
-SCAN_KERNELS = ("scan_walk_kernel", "jump_table_kernel", "chain_kernel")
+SCAN_KERNELS = ("scan_walk_kernel", "jump_table_kernel", "chain_kernel",
+                "segment_walk_kernel", "segment_stitch_kernel",
+                "segment_resolve_kernel", "segment_write_kernel")
 DECODE_KERNELS = ("decode_stream_kernel", "decode_blocks_kernel")
 
 

@@ -36,7 +36,6 @@ from .config import BadRleCodeError, Configuration
 from .container import CompressedData
 from .entropy import device_codec as DC
 from .entropy import device_scan as DS
-from .ops import kernels as K
 from .ops.band import BandDecoder, BandEncoder
 from .utils.device import caller_stream, resolve_device
 from .utils.profiling import carry, count, span
@@ -357,17 +356,18 @@ def _start_decompress(bytestream: bytes, dev: torch.device, scan: str,
     ``decode.stream_bytes`` adds the bands' bytes.
 
     The host scan runs on three threads and raises a stream's error here.
-    The device scan (K6, then K8 from each band's first byte) launches K3
-    and K4 before its check is known (K3 reads zeros past the stream, so
-    garbage starts are safe); the resolver reads the check and, where it
-    fails, raises what :func:`.entropy.device_scan.raise_rejected` raises.
-    An ``"auto"`` that takes the device scan counts ``scan.auto_device``;
-    a device scan whose K8 takes its long form (more than
-    ``CHASE_DIRECT_MAX`` blocks a band) counts ``scan.chase_long``.  Every
-    block is at least one byte (an EOB padded to a byte), so the device
-    scan rejects a band shorter than ``num_blocks`` bytes before anything
-    is sized from the header's geometry: a forged header cannot make the
-    decode allocate for it."""
+    The device scan (K6, then K8 from each band's first byte, or K10)
+    launches K3 and K4 before its check is known (K3 reads zeros past the
+    stream, so garbage starts are safe); the resolver reads the check and,
+    where it fails, raises what :func:`.entropy.device_scan.raise_rejected`
+    raises.  An ``"auto"`` that takes the device scan counts
+    ``scan.auto_device``.  Bands of ``SEGMENTED_MIN_BLOCKS`` blocks or more
+    take the segmented scan (K10,
+    :func:`.entropy.device_scan.scan_bands_segmented`) in place of K6 + K8
+    and count ``scan.segmented``.  Every block is at least one byte (an EOB
+    padded to a byte), so the device scan rejects a band shorter than
+    ``num_blocks`` bytes before anything is sized from the header's
+    geometry: a forged header cannot make the decode allocate for it."""
     with span("decode.parse"):
         config, spans = container.read_band_spans(bytestream)
         view = memoryview(bytestream)
@@ -387,10 +387,13 @@ def _start_decompress(bytestream: bytes, dev: torch.device, scan: str,
     with span("decode.upload"):
         stream = DC.upload_stream(view[base:base + ends[-1]], dev)
     if on_device:
-        if K.chase_plan(stream.shape[0] + 2, len(spans), nb).anchors:
-            count("scan.chase_long")
+        segmented = DS.segmented(nb)
+        if segmented:
+            count("scan.segmented")
         with span("scan.device"):
-            starts, ok = DS.scan_bands_starts(stream, ends, nb, L, firsts)
+            scan_bands = (DS.scan_bands_segmented if segmented
+                          else DS.scan_bands_starts)
+            starts, ok = scan_bands(stream, ends, nb, L, firsts)
     else:
         # The C++ scanner releases the GIL: one band a thread, each under
         # the caller's context so that its span's parent is this call's.
@@ -410,7 +413,7 @@ def _start_decompress(bytestream: bytes, dev: torch.device, scan: str,
     def resolve() -> torch.Tensor:
         if ok is not None:
             with span("decode.check"):
-                held = bool(ok)
+                held = DS.check_held(ok)
             if not held:
                 DS.raise_rejected(streams, nb, L)
         return planes

@@ -17,6 +17,15 @@ so the set of candidate starts is small enough to try them all:
    when it is not, the caller runs the host scanner for its error
    (:func:`scan_offsets_hybrid`, :func:`raise_rejected`).
 
+A decode whose bands hold ``SEGMENTED_MIN_BLOCKS`` blocks or more finds its
+starts with no table at all (kernel K10, :func:`scan_bands_segmented`):
+each band is cut into segments, a walker each walks its segment block after
+block (stepping one byte on where a block is rejected), and each walker
+walks on into the next segment until it meets a position that segment's
+walker accepted; from there the two walks are one.  Segment 0's walk is
+exact, so the band's starts are stitched from the walkers the exact walk
+passes through, and its check is the same as K6 + K8's.
+
 Not carried over from the JAX package: the quarter-octave padding of the
 stream (it bounded XLA compile counts; here P is the stream's true length),
 and the walker-window rungs (``_SPAN_RUNGS``, ``span_rungs``, the rung
@@ -33,6 +42,7 @@ import torch
 
 from ..ops import kernels as K
 from ..utils.device import resolve_device
+from ..utils.profiling import count, recording
 from . import numpy_codec
 from .device_codec import upload_stream
 
@@ -43,6 +53,16 @@ from .device_codec import upload_stream
 # on a 1 KB stream against 0.26-0.39 ms for the pure-Python scanner, and
 # won at every larger size measured.  PERF.md lists the times.
 PY_SCAN_DEVICE_MIN_BYTES = 1 << 10
+
+# Blocks a band from which a device decode takes the segmented scan (K10)
+# in place of K6's end table and K8's long form, which it replaces at every
+# length: on an NVIDIA H100 80GB HBM3 a decode_to_device call with K10 beat
+# the same call with K6 + K8 at every band measured, from 1,056 blocks
+# (0.66 against 0.82 ms) to 375,000 (10.2 against 13.8 ms; PERF.md, runs of
+# benchmarks/torch_segment_scan.py).  Shorter bands keep K8's short form,
+# which takes less device time than K10 (0.057 against 0.067 ms a call at
+# 920 blocks a band).
+SEGMENTED_MIN_BLOCKS = K.CHASE_DIRECT_MAX + 1
 
 SCANS = ("auto", "host", "device")
 
@@ -116,6 +136,46 @@ def scan_bands_starts(stream: torch.Tensor, ends, num_blocks: int, L: int,
     s0s = torch.tensor(firsts, dtype=torch.int64, device=stream.device)
     starts, oks = K.chase_starts_multi(E, targets, s0s, num_blocks)
     return starts.reshape(-1), oks.all()
+
+
+def segmented(num_blocks: int) -> bool:
+    """Whether a device decode with ``num_blocks`` blocks a band takes the
+    segmented scan (:func:`scan_bands_segmented`) rather than K6 + K8
+    (:func:`scan_bands_starts`)."""
+    return num_blocks >= SEGMENTED_MIN_BLOCKS
+
+
+def scan_bands_segmented(stream: torch.Tensor, ends, num_blocks: int,
+                         L: int, firsts=None):
+    """:func:`scan_bands_starts` without the end table (kernel K10): the
+    same bands and starts, and a check that holds for the same streams.
+
+    Returns ``((B * num_blocks,) int64 starts, (2,) int32 status)``:
+    ``status[0]`` is zero where every band passes, ``status[1]`` counts
+    the segments whose walker met no walk of the next one; read it with
+    :func:`check_held`.  The bands' offsets go to the kernel as launch
+    arguments, so nothing waits.  Counts ``scan.segments``, the walkers."""
+    ends = [int(e) for e in ends]
+    firsts = [0] + ends[:-1] if firsts is None else [int(f) for f in firsts]
+    if recording():
+        count("scan.segments", sum(K.segment_counts(firsts, ends,
+                                                    K.SEGMENT_BYTES)))
+    return K.segment_scan(stream, firsts, ends, num_blocks, L)
+
+
+def check_held(ok: torch.Tensor) -> bool:
+    """Read a device scan's check: :func:`scan_bands_starts`' 0-d bool, or
+    :func:`scan_bands_segmented`'s status, which holds when it found no
+    fault.  The status is read whole only while recording, where its
+    unsynced walkers go to the counter ``scan.segments_unsynced``;
+    otherwise one element comes back, as the bool does."""
+    if ok.dim() == 0:
+        return bool(ok)
+    if not recording():
+        return int(ok[0]) == 0
+    faults, unsynced = ok.tolist()
+    count("scan.segments_unsynced", unsynced)
+    return faults == 0
 
 
 def scan_mode(n_bytes: int = 1 << 30, scan: str = "auto",

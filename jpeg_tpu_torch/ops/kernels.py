@@ -22,6 +22,8 @@ scan_walk_capped           csrc/scan_walk.cu        the same, as sweep 1 of
                                                     its table
 chase_starts               csrc/chase.cu            _chase_kernel
 chase_starts_multi         csrc/chase.cu            _chase_multi_kernel
+segment_scan               csrc/segment_scan.cu     none: replaces K6 + K8's
+                                                    long form on long bands
 =========================  =======================  ========================
 
 Dispatch is by the device of the tensors a wrapper is given: CPU tensors
@@ -65,6 +67,7 @@ _lib_lock = threading.Lock()
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I32 = ctypes.c_int32
+_PI64 = ctypes.POINTER(ctypes.c_int64)
 _SIGNATURES = {
     # levels, n, L, W, lanes, tile, smem rows, rows, blk_bytes, device,
     # stream
@@ -105,6 +108,10 @@ _SIGNATURES = {
     # device, stream
     "jt_chase_multi": (_P, _I64, _P, _P, _I64, _I64, _P, _P, _P, _P, _I32,
                        _P),
+    # stream bytes, P, firsts, ends (host arrays), B, segment bytes, halo,
+    # L, nb, scratch, walker slots, starts, status, device, stream
+    "jt_segment_scan": (_P, _I64, _PI64, _PI64, _I64, _I32, _I32, _I32, _I64,
+                        _P, _I64, _P, _P, _I32, _P),
 }
 
 
@@ -1322,10 +1329,194 @@ def chase_starts_multi(E: torch.Tensor, targets: torch.Tensor,
     return starts, ok
 
 
+# ---------------------------------------------------------------------------
+# K10: stream bytes -> long bands' block starts + check (csrc/segment_scan.cu)
+# ---------------------------------------------------------------------------
+
+# K10 cuts each band into segments of SEGMENT_BYTES bytes, a walker each
+# (a multiple of 32: a segment's bitmap is whole words).  A thread block of
+# SEGMENT_THREADS walkers (the kernel's kThreads) stages its segments and
+# a halo of the longest walk (walk_span_bytes, at most SCAN_HALO_MAX) in
+# shared memory; each band's walkers take a multiple of SEGMENT_THREADS
+# slots of scratch.  A stitch keeps its first SEGMENT_KEPT starts (kCont).
+# The kernels run for at most SEGMENT_MAX_BANDS bands at a time (kMaxBands:
+# the bands' offsets are launch arguments).  On an NVIDIA H100, segments of
+# 128 bytes beat 256 and 512 on streams of 77 KB to 12 MB (more walkers to
+# fill the card) and lost to 256 by 0.03 ms a call on a 47 MB stream, out
+# of a 7.9 ms decode (benchmarks/torch_segment_scan.py; PERF.md).
+SEGMENT_BYTES = 128
+SEGMENT_THREADS = 128
+SEGMENT_KEPT = 4
+SEGMENT_MAX_BANDS = 16
+
+
+def segment_counts(firsts, ends, seg_bytes: int) -> list:
+    """Segments of each band [firsts[b], ends[b]): ceil(length / S), and
+    one for an empty band."""
+    return [max(1, -(-(e - f) // seg_bytes)) for f, e in zip(firsts, ends)]
+
+
+def segment_scratch(counts, seg_bytes: int) -> tuple:
+    """(walker slots, int32 scratch entries) of K10 for bands of ``counts``
+    segments: each band's slots rounded up to SEGMENT_THREADS; a slot
+    takes 13 entries, SEGMENT_KEPT kept starts and its bitmap, a warp of
+    slots two entries, a band one (csrc/segment_scan.cu ``Segs``)."""
+    G = sum(-(-K // SEGMENT_THREADS) * SEGMENT_THREADS for K in counts)
+    per_slot = 13 + SEGMENT_KEPT + seg_bytes // 32
+    return G, G * per_slot + G // 16 + len(counts)
+
+
+def _band_step(buf: bytes, p: int, end: int, L: int):
+    """One step of a band's walk from byte p < end, as K10's ``step()``:
+    (the end of the block at p, True) where the host scanner's rules,
+    reading no bit at or past ``end``, accept it, else (p + 1, False).
+    ``buf`` has a zero byte past the stream."""
+    limit = 8 * (end - p)
+    pos = widx = 0
+    base = 8 * p
+    for _ in range(_walk_units(L)):
+        if pos + 8 > limit:
+            return p + 1, False
+        bit = base + pos
+        b = bit >> 3
+        h = (((buf[b] << 8) | buf[b + 1]) >> (8 - (bit & 7))) & 0xFF
+        if h == 0:
+            return p + ((pos + 15) >> 3), True
+        if h == 0xF0:
+            widx += MAX_RUN
+            pos += 8
+            continue
+        run, size = h >> 4, h & 0xF
+        if size == 0 or pos + 8 + size > limit or widx + run >= L:
+            return p + 1, False
+        widx += run + 1
+        pos += 8 + size
+    return p + 1, False
+
+
+def segment_scan_plain(stream: torch.Tensor, firsts, ends, nb: int, L: int,
+                       seg_bytes: int):
+    """Plain version of K10: its four phases in Python loops, a walker at a
+    time, with a set of positions in place of each segment's bitmap.  It
+    returns what the kernel returns, bit for bit: the starts of failed
+    bands and the count of unsynced walkers too."""
+    buf = bytes(stream.cpu().numpy().tobytes()) + b"\0"
+    S = seg_bytes
+    out = []
+    faults_all = unsynced = 0
+    for first, end, K in zip(firsts, ends, segment_counts(firsts, ends, S)):
+        # 1. Walk: each segment's accepted positions, stop, last rejection.
+        acc, stop, last_rej = [], [], []
+        for k in range(K):
+            p = first + k * S
+            seg_end = min(p + S, end)
+            got, rej = [], -1
+            while p < seg_end:
+                q, ok = _band_step(buf, p, end, L)
+                if ok:
+                    got.append(p)
+                else:
+                    rej = p
+                p = q
+            acc.append(got)
+            stop.append(p)
+            last_rej.append(rej)
+        held = [set(a) for a in acc]
+        # 2. Stitch: each walker on to a later walker's accepted position.
+        link, entry, cont, bad = [], [], [], []
+        for k in range(K):
+            p, m, way, rej = stop[k], K, [], False
+            if k + 1 < K:
+                while p < end:
+                    mm = (p - first) // S
+                    if p in held[mm]:
+                        m = mm
+                        break
+                    q, ok = _band_step(buf, p, end, L)
+                    if ok:
+                        way.append(p)
+                    else:
+                        rej = True
+                    p = q
+            if m < K:
+                rej = rej or last_rej[m] >= p
+            unsynced += m != k + 1
+            link.append(m)
+            entry.append(p)
+            cont.append(way)
+            bad.append(rej)
+        # 3 and 4. The exact walk: segment 0, then each link from its entry;
+        # its faults: a rejection in segment 0 or met on the way, a count
+        # other than nb.
+        walk, faults = [], int(last_rej[0] >= first)
+        k, e = 0, first
+        while k < K:
+            walk += [x for x in acc[k] if x >= e] + cont[k]
+            faults += bad[k]
+            k, e = link[k], entry[k]
+        faults += len(walk) != nb
+        faults_all += faults
+        out += walk[:nb] + [end] * (nb - len(walk))
+    return (torch.tensor(out, dtype=torch.int64, device=stream.device),
+            torch.tensor([faults_all, unsynced], dtype=torch.int32,
+                         device=stream.device))
+
+
+def segment_scan(stream: torch.Tensor, firsts, ends, nb: int, L: int,
+                 seg_bytes: int = SEGMENT_BYTES):
+    """(P,) uint8 stream buffer holding B bands, band b at bytes
+    [firsts[b], ends[b]) (Python ints: they go to the kernel as launch
+    arguments), nb blocks each -> ((B * nb,) int64 starts, (2,) int32
+    status), with no end table and no host wait.
+
+    Band b's starts are its exact walk's first nb accepted blocks, each
+    walked with the host scanner's rules reading no bit past ends[b].
+    ``status[0]`` is zero exactly when every band passes: its walk rejects
+    no block and accepts nb (it counts the faults found).  A band passes
+    exactly when :func:`chase_starts_multi` over :func:`scan_walk`'s table
+    accepts it, and then the starts are the same.  A failed band's starts
+    are positions of its walk, then ``ends[b]``.  ``status[1]`` counts the
+    segments whose walker met no walk of the next segment
+    (csrc/segment_scan.cu).  ``seg_bytes`` is a multiple of 32."""
+    _check(stream, "stream", torch.uint8, 1)
+    P = stream.shape[0]
+    firsts, ends = [int(f) for f in firsts], [int(e) for e in ends]
+    if len(firsts) != len(ends):
+        raise ValueError(f"{len(firsts)} band starts but {len(ends)} ends")
+    if not all(0 <= f <= e <= P for f, e in zip(firsts, ends)):
+        raise ValueError(f"bands must lie in the {P}-byte stream")
+    if P + 2 >= 1 << 31:
+        raise ValueError(f"a {P}-byte stream overflows int32 positions")
+    if not 1 <= L <= SCAN_MAX_L:
+        raise ValueError(f"L must be in [1, {SCAN_MAX_L}], got {L}")
+    if not 0 <= nb < 1 << 31:
+        raise ValueError(f"nb must be in [0, 2**31), got {nb}")
+    if seg_bytes < 32 or seg_bytes % 32:
+        raise ValueError(f"seg_bytes must be a positive multiple of 32, got "
+                         f"{seg_bytes}")
+    if not _on_cuda(stream):
+        return segment_scan_plain(stream, firsts, ends, nb, L, seg_bytes)
+    dev, B = stream.device, len(firsts)
+    starts = torch.empty(B * nb, dtype=torch.int64, device=dev)
+    status = torch.empty(2, dtype=torch.int32, device=dev)
+    if not B:
+        return starts, status.zero_()
+    G, entries = segment_scratch(segment_counts(firsts, ends, seg_bytes),
+                                 seg_bytes)
+    scratch = torch.empty(entries, dtype=torch.int32, device=dev)
+    halo = min(_ceil16(walk_span_bytes(L)), SCAN_HALO_MAX)
+    _launch("jt_segment_scan", dev, stream.data_ptr(), P,
+            (ctypes.c_int64 * B)(*firsts), (ctypes.c_int64 * B)(*ends), B,
+            seg_bytes, halo, L, nb, scratch.data_ptr(), G, starts.data_ptr(),
+            status.data_ptr())
+    _count(segment_scan)
+    return starts, status
+
+
 KERNELS = (encode_stream_rows, encode_stream_rows_tables, deposit_rows,
            decode_stream_blocks, decode_blocks, encode_blocks, scan_walk,
            scan_walk_capped, scan_walk_resume, chase_starts,
-           chase_starts_multi)
+           chase_starts_multi, segment_scan)
 
 
 def reset_launch_counts() -> None:

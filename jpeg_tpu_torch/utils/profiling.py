@@ -112,6 +112,11 @@ def recorded() -> Recording:
         return Recording(tuple(r.spans), dict(r.counts))
 
 
+def recording() -> bool:
+    """Whether spans and counters are being recorded."""
+    return _RECORDER.on
+
+
 def count(name: str, n: int = 1) -> None:
     """Add ``n`` to the counter ``name`` while recording."""
     r = _RECORDER

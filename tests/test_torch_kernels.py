@@ -299,7 +299,8 @@ def test_wrappers_check_inputs_and_never_fall_back():
                            "deposit_rows", "decode_stream_blocks",
                            "decode_blocks", "encode_blocks", "scan_walk",
                            "scan_walk_capped", "scan_walk_resume",
-                           "chase_starts", "chase_starts_multi"}
+                           "chase_starts", "chase_starts_multi",
+                           "segment_scan"}
     with pytest.raises(ValueError, match="n_bytes"):
         K.scan_walk(torch.zeros(4, dtype=torch.uint8), 5, 64)
     with pytest.raises(ValueError, match="int32"):
@@ -324,15 +325,17 @@ def test_kernel_build_is_keyed_by_source_hash():
     assert [os.path.basename(p) for p in K._sources()] == [
         "chase.cu", "compact.cu", "decode_blocks.cu", "decode_stream.cu",
         "encode_blocks.cu", "encode_stream.cu", "encode_tables.cu",
-        "scan_walk.cu"]
+        "scan_walk.cu", "segment_scan.cu"]
     # the two encode kernels share one bit writer, the two products one
-    # tensor-core product
+    # tensor-core product, the two boundary scans one walk
     for src, header in (("encode_stream.cu", "bit_writer.cuh"),
                         ("encode_tables.cu", "bit_writer.cuh"),
                         ("decode_blocks.cu", "tc_product.cuh"),
-                        ("encode_blocks.cu", "tc_product.cuh")):
+                        ("encode_blocks.cu", "tc_product.cuh"),
+                        ("scan_walk.cu", "scan_walk.cuh"),
+                        ("segment_scan.cu", "scan_walk.cuh")):
         with open(os.path.join(K.CSRC, src)) as f:
             assert f'#include "{header}"' in f.read(), src
     assert sorted(os.path.basename(p) for p in glob.glob(
         os.path.join(K.CSRC, "*.cuh"))) == [
-        "bit_writer.cuh", "common.cuh", "tc_product.cuh"]
+        "bit_writer.cuh", "common.cuh", "scan_walk.cuh", "tc_product.cuh"]

@@ -74,6 +74,8 @@ def nothing_sized_from_the_header(monkeypatch):
     monkeypatch.setattr(api.DC, "upload_stream", refuse("upload_stream"))
     monkeypatch.setattr(api.DS, "scan_bands_starts",
                         refuse("scan_bands_starts"))
+    monkeypatch.setattr(api.DS, "scan_bands_segmented",
+                        refuse("scan_bands_segmented"))
     monkeypatch.setattr(DS, "upload_stream", refuse("upload_stream"))
     monkeypatch.setattr(api.entropy, "scan_offsets", refuse("scan_offsets"))
 

@@ -93,7 +93,7 @@ CASES = ["real blocks", "buffer longer than n_bytes",
 # ---------------------------------------------------------------------------
 
 def _walk(header, pos, widx, limit, L, units):
-    """csrc/scan_walk.cu ``walk()``: (status, pos, widx)."""
+    """csrc/scan_walk.cuh ``walk()``: (status, pos, widx)."""
     for _ in range(units):
         if pos + 8 > limit:
             return "err", pos, widx
@@ -111,7 +111,7 @@ def _walk(header, pos, widx, limit, L, units):
 
 
 class _StreamBits:
-    """csrc/scan_walk.cu ``StreamBits``: a 64-bit buffer of big-endian
+    """csrc/scan_walk.cuh ``StreamBits``: a 64-bit buffer of big-endian
     words, zero outside [0, P); one word taken when a header starts 32
     bits or more into it."""
 

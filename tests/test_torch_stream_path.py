@@ -12,9 +12,10 @@ one copy, from the caller's memory, with no host copy before it.
 * Truncated, inconsistent and rejected containers raise what the decode
   raised when it copied the bands first: ``read_data``'s errors, then the
   host scanner's error of the first band it rejects, under both scans.
-* ``decode.stream_bytes`` counts the bands' bytes; ``scan.chase_long``
-  counts a device-scan decode whose bands have more than
-  ``CHASE_DIRECT_MAX`` blocks.
+* ``decode.stream_bytes`` counts the bands' bytes.  A device-scan decode
+  whose bands have more than ``CHASE_DIRECT_MAX`` blocks takes the
+  segmented scan (``scan.segmented``), so K8's long form, which
+  ``scan.chase_long`` counted, no longer runs in a decode.
 """
 import os
 import struct
@@ -234,12 +235,16 @@ def test_stream_bytes_counts_the_bands(small, entry, scan):
 @pytest.mark.parametrize("scan", SCANS)
 @pytest.mark.parametrize("hw,nb", [((256, 256), 1024), ((264, 256), 1056)])
 def test_chase_long_counts_bands_past_the_direct_form(hw, nb, scan):
-    """A band of ``CHASE_DIRECT_MAX`` blocks takes K8's short form, one
-    more its long form; only the device scan runs K8."""
+    """A band of ``CHASE_DIRECT_MAX`` blocks takes K8's short form; one
+    more is past it, where the segmented scan takes the band, so K8's long
+    form does not run and ``scan.chase_long`` is never counted; only the
+    device scan runs either."""
     blob, codec = _blob(*hw, seed=nb)
     assert codec.num_blocks == nb and K.CHASE_DIRECT_MAX == 1024
+    assert DS.SEGMENTED_MIN_BLOCKS == K.CHASE_DIRECT_MAX + 1
     counts = _recorded("decompress_to_device", blob, scan)
-    long_form = scan == "device" and nb > K.CHASE_DIRECT_MAX
-    assert counts.get("scan.chase_long", 0) == int(long_form)
+    segmented = scan == "device" and nb > K.CHASE_DIRECT_MAX
+    assert "scan.chase_long" not in counts
+    assert counts.get("scan.segmented", 0) == int(segmented)
     spans = _band_spans(blob)
     assert counts["decode.stream_bytes"] == sum(n for _, n in spans)
